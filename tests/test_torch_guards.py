@@ -1,0 +1,162 @@
+"""Guards of the PyTorch port: it never imports JAX, a CUDA request never
+runs on the CPU, no wrapper falls back to its plain version off the CPU,
+and renders outside the ported envelope raise NotImplementedError."""
+
+from __future__ import annotations
+
+import os
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from raytracerfacility_tpu_torch import kernels
+from raytracerfacility_tpu_torch.enums import (
+    EnvironmentalLightingType,
+    MaterialType,
+    RendererType,
+)
+from raytracerfacility_tpu_torch.models import pathtracer as pt
+from raytracerfacility_tpu_torch.models.renderer import EnvironmentProperties
+from raytracerfacility_tpu_torch.ops import fused, seg
+from raytracerfacility_tpu_torch.scene import MaterialProperties
+from raytracerfacility_tpu_torch.scenes import bench_scene
+
+REPO = pathlib.Path(__file__).resolve().parent.parent
+
+_RENDER_8X8 = """
+import sys
+from raytracerfacility_tpu_torch.models.pathtracer import (
+    RenderConfig, init_frame, render_frames_counted)
+from raytracerfacility_tpu_torch.scenes import bench_scene
+scene, cam, env = bench_scene(8, 8)
+frame, rays = render_frames_counted(
+    scene.build("cpu"), cam.state("cpu"), env.state("cpu"),
+    RenderConfig(width=8, height=8, bounces=2), init_frame(8, 8, "cpu"), 2)
+assert frame.color.shape == (8, 8, 4) and int(rays) > 0
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "raytracerfacility_tpu"))
+print("LOADED", bad)
+"""
+
+
+def test_port_never_imports_jax():
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    out = subprocess.run([sys.executable, "-c", _RENDER_8X8], cwd=REPO,
+                         env=env, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "LOADED []" in out.stdout, out.stdout
+
+
+def test_cuda_request_raises_without_a_gpu():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; this checks the CPU-only case")
+    scene, cam, env = bench_scene(8, 8)
+    with pytest.raises((RuntimeError, AssertionError)):
+        scene.build("cuda")
+    with pytest.raises((RuntimeError, AssertionError)):
+        cam.state("cuda")
+    with pytest.raises((RuntimeError, AssertionError)):
+        pt.init_frame(8, 8, "cuda")
+
+
+def test_wrappers_do_not_fall_back_off_the_cpu():
+    """A tensor that is not on the CPU never gets the plain version."""
+    scene, _, _ = bench_scene(8, 8)
+    tables = tuple(t.to("meta") for t in scene.build("cpu").fused)
+    env = torch.zeros(16, device="meta")
+    st = torch.zeros((fused.NPLANES, 64), device="meta")
+    rng = torch.zeros(64, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError):
+        seg.segment(tables, env, st, rng, 64, True, True, 256)
+    with pytest.raises(ValueError):
+        fused.fused_path(tables, torch.zeros((7, 64), device="meta"), rng,
+                         env, 2, 256)
+
+
+@pytest.mark.parametrize("bad", ["chunk", "columns", "env", "offsets"])
+def test_kernel_inputs_are_validated(bad):
+    """The kernels index tables by chunk and sub-run and planes by 32-bit
+    offsets: shapes that would take them out of bounds never launch."""
+    scene, _, _ = bench_scene(8, 8)
+    tables = scene.build("cpu").fused
+    env = torch.zeros(16)
+    chunk, rays = 256, 1024
+    fused.check_kernel_inputs(tables, env, chunk, rays, 13, torch.device("cpu"))
+    if bad == "chunk":
+        chunk = 300
+    elif bad == "columns":
+        tables = (tables[0][:, :12].contiguous(),) + tuple(tables[1:])
+    elif bad == "env":
+        env = torch.zeros(8)
+    else:
+        rays = 2**28
+    with pytest.raises(ValueError):
+        fused.check_kernel_inputs(tables, env, chunk, rays, 13,
+                                  torch.device("cpu"))
+
+
+def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):
+    monkeypatch.setattr(kernels, "BUILD_DIR", tmp_path)
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
+    with pytest.raises(RuntimeError, match="nvcc"):
+        kernels.build()
+
+
+def _render(scene, env_props, **config):
+    cfg = pt.RenderConfig(width=8, height=8, bounces=1, **config)
+    _, cam, _ = bench_scene(8, 8)
+    return pt.render_frame_counted(
+        scene.build("cpu"), cam.state("cpu"), env_props.state("cpu"), cfg,
+        pt.init_frame(8, 8, "cpu"))
+
+
+@pytest.mark.parametrize("case", [
+    "single_light_source", "skydome", "cubemap", "alpha_test", "btf_config",
+    "subsurface_config", "spp_without_lanes"])
+def test_render_outside_envelope_raises(case):
+    scene, _, env = bench_scene(8, 8)
+    config = {}
+    if case == "single_light_source":
+        config["lighting_type"] = EnvironmentalLightingType.SINGLE_LIGHT_SOURCE
+    elif case == "skydome":
+        config["lighting_type"] = EnvironmentalLightingType.SKYDOME
+    elif case == "cubemap":
+        env = EnvironmentProperties(cubemap=np.ones((6, 4, 4, 3), np.float32))
+    elif case == "alpha_test":
+        config["alpha_test"] = True
+    elif case == "btf_config":
+        config["enable_btf"] = True
+    elif case == "subsurface_config":
+        config["enable_subsurface"] = True
+    else:
+        config["samples"] = 2
+    with pytest.raises(NotImplementedError):
+        _render(scene, env, **config)
+
+
+@pytest.mark.parametrize("case", [
+    "texture", "btf_material", "vertex_color", "subsurface", "skinned", "curve"])
+def test_scene_outside_envelope_raises(case):
+    scene, _, _ = bench_scene(8, 8)
+    if case == "texture":
+        scene.upsert_material(51, version=1,
+                              albedo_texture=np.ones((4, 4, 4), np.float32))
+    elif case == "btf_material":
+        scene.upsert_material(51, version=1,
+                              material_type=MaterialType.COMPRESSED_BTF)
+    elif case == "vertex_color":
+        scene.upsert_material(51, version=1,
+                              material_type=MaterialType.VERTEX_COLOR)
+    elif case == "subsurface":
+        scene.upsert_material(51, version=1, properties=MaterialProperties(
+            subsurface_factor=0.5))
+    else:
+        kind = RendererType.SKINNED if case == "skinned" else RendererType.CURVE
+        scene.upsert_geometry(50, version=1, renderer_type=kind)
+    with pytest.raises(NotImplementedError):
+        scene.build("cpu")

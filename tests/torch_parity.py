@@ -1,0 +1,94 @@
+"""Shared helpers of the tests that hold the PyTorch port against the JAX
+package (tests/test_torch_*.py): building one scene in both packages and
+the cross-engine tolerances.
+
+The tolerances are the reference's own gates between its engines
+(tests/test_fused.py:58-73). Identical RNG streams and accept windows
+leave only float rounding differences (FMA contraction in XLA's CPU
+code, other sin/cos/pow implementations), and a rounding difference that
+flips one bounce direction moves that pixel a lot (chaotic amplification),
+so the gates bound the bulk tightly and the tails loosely.
+"""
+
+from __future__ import annotations
+
+import os
+
+import numpy as np
+import torch
+
+# the suite runs in several worker processes: one intra-op thread each
+# keeps the port's plain (CPU) kernels from oversubscribing the cores
+torch.set_num_threads(1)
+
+
+def reference_bench(width: int, height: int):
+    """The JAX package's bench scene compiled with its path tables, plus
+    its CameraProperties and EnvironmentProperties."""
+    import __graft_entry__ as ge
+
+    old = os.environ.get("RTF_TPU_FUSED")
+    os.environ["RTF_TPU_FUSED"] = "1"
+    try:
+        scene, cam, env = ge._bench_scene(width, height)
+        compiled = scene.build(build_bvh=False)
+    finally:
+        if old is None:
+            del os.environ["RTF_TPU_FUSED"]
+        else:
+            os.environ["RTF_TPU_FUSED"] = old
+    assert compiled.fused is not None
+    return compiled, cam, env
+
+
+def port_tables_from_reference(compiled, device="cpu"):
+    """The reference's packed tables as the port's, through convert.py."""
+    from raytracerfacility_tpu_torch.convert import fused_tables_from_numpy
+
+    return fused_tables_from_numpy(
+        *(np.asarray(t) for t in compiled.fused), chunk=compiled.fused_chunk,
+        device=device)
+
+
+def reference_env_vector(env_state):
+    """The reference's 16-wide environment vector (pathtracer.py:989-1004)."""
+    color = np.asarray(env_state.color, np.float32)
+    sky = np.float32(env_state.skylight_intensity)
+    gamma = np.float32(env_state.gamma)
+    vec = np.zeros(16, np.float32)
+    vec[0:3] = np.maximum(np.power(np.maximum(color * sky, 0.0),
+                                   np.float32(1.0) / gamma), 0.0)
+    vec[3:6] = color * np.float32(env_state.ambient_light_intensity)
+    vec[6:9] = np.asarray(env_state.sun_direction, np.float32)
+    vec[9] = np.float32(1.0) - np.float32(env_state.light_size)
+    return vec
+
+
+def assert_color_close(a, b, what="colour"):
+    """Frame-colour gate: |d| 99th percentile < 2e-3, 99.9th < 5e-2,
+    mean < 3e-4."""
+    d = np.abs(np.asarray(a, np.float64) - np.asarray(b, np.float64))
+    assert np.quantile(d, 0.99) < 2e-3, (what, float(np.quantile(d, 0.99)))
+    assert np.quantile(d, 0.999) < 5e-2, (what, float(np.quantile(d, 0.999)))
+    assert d.mean() < 3e-4, (what, float(d.mean()))
+
+
+def assert_aov_close(a, b, what="aov"):
+    """AOV gate: |d| 99.9th percentile < 5e-3."""
+    d = np.abs(np.asarray(a, np.float64) - np.asarray(b, np.float64))
+    assert np.quantile(d, 0.999) < 5e-3, (what, float(np.quantile(d, 0.999)))
+
+
+def assert_count_close(a, b):
+    """Live-ray counts within max(2, 0.1%): only flipped terminations
+    differ."""
+    a, b = float(a), float(b)
+    assert abs(a - b) <= max(2.0, 1e-3 * b), (a, b)
+
+
+def assert_mostly_equal(a, b, what="", frac=0.999):
+    """Hit records (act, prim-derived ids, RNG states) equal on >= 99.9%
+    of rays: a grazing accept may flip under other rounding."""
+    a, b = np.asarray(a), np.asarray(b)
+    same = float(np.mean(a == b))
+    assert same >= frac, (what, same)
