@@ -1,17 +1,26 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's camera path once on one NVIDIA GPU.
+"""Drive the PyTorch port's camera paths on one NVIDIA GPU.
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 It builds the CUDA kernels from ``raytracerfacility_tpu_torch/csrc``,
 holds each kernel against its plain PyTorch version on the card (at small
-sizes, then at the shapes the main path gives it), renders the bench
-scene at 1920x1080 (8 bounces, 1 spp, 4 progressive frames) through
-``models.pathtracer.render_frames_counted``, checks from the launch
-counters that the path went through the kernels, renders a small pool
-through the whole-path kernel, times the kernels and the frame, splits
-the device time of one 1080p call by kernel family and by the engine's
-segments (``torch.profiler``, CUDA activity), and compares a small
-render on the card with the same render on the CPU.
+sizes, then at the shapes its path gives it), and drives each path through
+``models.pathtracer.render_frames_counted`` with the launch counters set
+to 0 just before and read just after, so each shows that it went through
+its kernels:
+
+- the bench scene at 1920x1080, 8 bounces, 1 spp, 4 progressive frames
+  (BASELINE config 2): the segmented engine, K1;
+- the bench scene at 256x256 x 4 pooled frames: the whole-path engine, K2;
+- the strands scene of BASELINE config 7 (800 cubic strands) at 512x512,
+  2 bounces, 8 pooled frames: the wavefront engine, K3 closest hit;
+- SingleLightSource lighting on the 1080p bench scene (K2-SLS) and on the
+  strands scene (the wavefront engine, K3 closest hit and any-hit).
+
+It times the kernels and the paths, splits the device time of one 1080p
+call and of one config-7 call by kernel family (``torch.profiler``, CUDA
+activity), computes each kernel's bound from the work its inputs need,
+and compares small renders on the card with the same renders on the CPU.
 Any failure raises and the exit code is non-zero; with no CUDA device it
 exits non-zero before printing a result.
 
@@ -31,6 +40,9 @@ BOUNCES = 8
 FRAMES = 4
 WIDTH, HEIGHT = 1920, 1080
 SMALL = 256  # the small-pool path: 256x256 x 4 frames = 262,144 rays
+# BASELINE config 7 (bench.py:297-321): 800 strands, 512x512, 2 bounces,
+# 8 progressive frames pooled into one 2,097,152-ray pool
+C7, C7_BOUNCES, C7_FRAMES = 512, 2, 8
 
 # kernel-vs-plain and cross-device gates (the reference's cross-engine
 # gates, tests/test_fused.py:58-73): identical inputs leave only rounding
@@ -184,12 +196,210 @@ def check_k2(device, width, height, frames, bounces):
     return worst
 
 
+def check_k2_sls(device, width, height, frames):
+    """K2-SLS against its plain version on a SingleLightSource camera pool
+    of ``frames`` pooled frames of the bench scene. Returns the largest
+    |d| of the radiance."""
+    import torch
+
+    from raytracerfacility_tpu_torch.ops import fused
+    from raytracerfacility_tpu_torch.ops.rng import to_int32
+
+    compiled, _, o, d, rng = _camera_pool(width, height, frames, device)
+    env = _sls_env_vector(device)
+    n = o.shape[0]
+    rays = torch.cat([o.T, d.T, torch.ones(1, n, device=device)]).contiguous()
+    rng = to_int32(rng).contiguous()
+    out_k, cnt_k = fused.fused_sls(compiled.fused, rays, rng, env,
+                                   compiled.fused_chunk)
+    out_p, cnt_p = fused._fused_sls_plain(compiled.fused, rays, rng, env)
+    torch.cuda.synchronize()
+    worst = _check_color(out_k[0:3], out_p[0:3], "SLS radiance")
+    q = max(_check_aov(out_k[k], out_p[k], f"aov plane {k}") for k in range(3, 12))
+    same = float((out_k == out_p).all(0).float().mean())
+    print(f"  {n} rays: all 12 planes equal on {same:.6f} of rays, aov planes "
+          f"worst |d| p99.9 {q:.3g}, radiance max |d| {worst:.3g}; live "
+          f"{int(cnt_k)} vs {int(cnt_p)}")
+    if same < HIT_AGREE:
+        raise AssertionError("K2-SLS output planes disagree")
+    if int(cnt_k) != int(cnt_p):
+        raise AssertionError("K2-SLS live counts disagree")
+    return worst, (compiled, rays, rng, env)
+
+
+def _sls_env_vector(device):
+    """The 16-wide environment vector of the SLS paths: the default flat
+    colour, a low sun with a finite disk (ops: pathtracer._env_vector)."""
+    from raytracerfacility_tpu_torch.models.pathtracer import _env_vector
+
+    return _env_vector(_sls_env().state(device))
+
+
+def _sls_env():
+    from raytracerfacility_tpu_torch.models.renderer import EnvironmentProperties
+
+    return EnvironmentProperties(sun_direction=(0.45, 0.75, 0.35),
+                                 light_size=0.05, ambient_light_intensity=0.2)
+
+
+def capture_k3(render):
+    """Run ``render()`` with K3's wrapper recording the inputs of its first
+    closest-hit and first any-hit launch: {any_hit: (tables, planes, n)}."""
+    from raytracerfacility_tpu_torch.models import pathtracer
+    from raytracerfacility_tpu_torch.ops import brute
+
+    seen = {}
+    real = brute.trace_planes
+
+    def spy(tables, planes, n, any_hit):
+        seen.setdefault(bool(any_hit),
+                        (tables, [p[:n].clone() for p in planes], n))
+        return real(tables, planes, n, any_hit)
+
+    brute.trace_planes = pathtracer.trace_planes = spy
+    try:
+        render()
+    finally:
+        brute.trace_planes = pathtracer.trace_planes = real
+    return seen
+
+
+def check_k3(tables, planes, n, any_hit):
+    """K3 against its plain version on all ``n`` rays of a captured launch.
+    Closest hit: (t, prim, u, v) equal on >= 99.9% of all rays and of the
+    rays that hit in either. Any-hit: the occlusion flag equal on >= 99.9%
+    of the rays with a live window (tmax not DEAD) and of the rays occluded
+    in either, so a lost occluder counts against the few that are. Returns
+    (max |d| of t over rays both hit, kernel output, plain ms: one call,
+    CUDA events)."""
+    import torch
+
+    from raytracerfacility_tpu_torch.ops import brute
+
+    out_k = brute.trace_planes(tables, planes, n, any_hit)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out_p = brute._trace_plain(tables[0], torch.stack(planes), n)
+    end.record()
+    end.synchronize()
+    hit_k, hit_p = out_k[1] >= 0, out_p[1] >= 0
+    either = hit_k | hit_p
+    if any_hit:
+        lanes = planes[7] != brute.DEAD
+        equal = hit_k == hit_p
+    else:
+        lanes = torch.ones_like(hit_k)
+        equal = (out_k == out_p).all(0)
+    agree = float(equal[lanes].float().mean())
+    agree_hits = float(equal[either].float().mean()) if bool(either.any()) else 1.0
+    if any_hit:  # the flag is the result: |d| is 0 or 1
+        err = float((hit_k != hit_p).float().max())
+    else:
+        both = hit_k & hit_p
+        err = float((out_k[0][both] - out_p[0][both]).abs().max()) if bool(both.any()) else 0.0
+    what = "occlusion flag" if any_hit else "hit record"
+    diff = torch.nonzero(~equal & lanes)[:, 0]
+    print(f"  {'any-hit' if any_hit else 'closest'}: {n} rays, {int(lanes.sum())} "
+          f"with a live window, {int(hit_k.sum())} hits (plain {int(hit_p.sum())}); "
+          f"{what} equal on {agree:.6f} of them and on {agree_hits:.6f} of the "
+          f"{int(either.sum())} rays that hit in either ({diff.numel()} rays "
+          f"differ); {'flag' if any_hit else 't'} max |d| {err:.3g}")
+    if diff.numel():
+        # the rays that differ through the kernel again with every box open:
+        # where it then equals the plain version, the per-ray cull decided
+        subs, chunks = tables[1].clone(), tables[2].clone()
+        for box in (subs, chunks):
+            box[:, 0:3], box[:, 3:6] = -3.4e38, 3.4e38
+        sel = [p[diff].contiguous() for p in planes]
+        open_k = brute.trace_planes((tables[0], subs, chunks), sel, diff.numel(),
+                                    any_hit)
+        same = ((open_k[1] >= 0) == hit_p[diff]) if any_hit else (
+            open_k == out_p[:, diff]).all(0)
+        print(f"    with every box open the kernel equals the plain version on "
+              f"{int(same.sum())} of them")
+        for j in range(min(4, diff.numel())):
+            i = int(diff[j])
+            print(f"    ray {i}: kernel (t, prim, u, v) "
+                  f"{[float(x) for x in out_k[:, i]]}, plain "
+                  f"{[float(x) for x in out_p[:, i]]}, boxes open "
+                  f"{[float(x) for x in open_k[:, j]]}")
+    if min(agree, agree_hits) < HIT_AGREE:
+        raise AssertionError("K3 disagrees with its plain version")
+    return err, out_k, start.elapsed_time(end)
+
+
+# Operations of one ray-primitive test as the kernels write it (multiplies,
+# adds, divisions, square roots, min/max, compares and selects counted
+# one each; -fmad=false leaves no fused multiply-adds)
+TRI_OPS = 55  # Moller-Trumbore and the accept tests
+CURVE_OPS = 137  # cone body quadratic, two sphere caps, the axis parameter
+PEAK_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
+PEAK_BYTES = 3.35e12  # H100 SXM HBM3
+
+
+def culled_tests(tables, chunk, planes, n, best_t, batch=1 << 18):
+    """(triangle tests, curve tests) a per-ray cull leaves when every box
+    test compares against the ray's final best t: the least work a
+    traversal that knew its answer would do, so a lower bound of the
+    kernel's. ``planes`` as K3's (origin, direction, tmin first), ``tables``
+    (rows, sub-run boxes with the run kind in column 6, chunk boxes)."""
+    import torch
+
+    rows, subs, chunks = tables[0], tables[1], tables[2]
+    nchunks = rows.shape[0] // chunk
+    sub = rows.shape[0] // subs.shape[0]
+    curve_run = subs[:, 6] >= 0.5
+    tri = cur = 0
+    for r0 in range(0, n, batch):
+        sl = slice(r0, min(n, r0 + batch))
+        o = [p[sl, None] for p in planes[0:3]]
+        iv = []
+        for p in planes[3:6]:
+            d = p[sl, None]
+            eps = torch.where(d < 0, -1e-20, 1e-20)
+            iv.append(1.0 / torch.where(d.abs() < 1e-20, eps, d))
+        tmin, bt = planes[6][sl, None], best_t[sl, None]
+
+        def enters(box):
+            near = far = None
+            for a in range(3):
+                t1 = (box[None, :, a] - o[a]) * iv[a]
+                t2 = (box[None, :, a + 3] - o[a]) * iv[a]
+                lo, hi = torch.minimum(t1, t2), torch.maximum(t1, t2)
+                near = lo if near is None else torch.maximum(near, lo)
+                far = hi if far is None else torch.minimum(far, hi)
+            return (near <= far) & (far > tmin) & (near <= bt)
+
+        runs = enters(subs) & enters(chunks[:nchunks]).repeat_interleave(
+            chunk // sub, dim=1)
+        tri += int((runs & ~curve_run).sum()) * sub
+        cur += int((runs & curve_run).sum()) * sub
+    return tri, cur
+
+
+def bound(nbytes, tri, cur):
+    """(bound ms, what bounds it) for moving ``nbytes`` and ``tri`` + ``cur``
+    primitive tests."""
+    t_bytes = nbytes / PEAK_BYTES
+    t_ops = (tri * TRI_OPS + cur * CURVE_OPS) / PEAK_FLOPS
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def _nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
 def _family(name):
     """Kernel family of a device event, for the device-time breakdown."""
     if "seg_segment_kernel" in name:
         return "K1 seg_segment_kernel"
+    if "fused_sls_kernel" in name:
+        return "K2-SLS fused_sls_kernel"
     if "fused_path_kernel" in name:
         return "K2 fused_path_kernel"
+    if "brute_trace_kernel" in name:
+        return "K3 brute_trace_kernel"
     if "Memcpy" in name or "Memset" in name:
         return "memcpy / memset"
     if "radix" in name.lower() or "cub::" in name:
@@ -206,6 +416,8 @@ def _family(name):
         return "elementwise int64"
     if re.search(r"\bint\b", head):
         return "elementwise int32"
+    if re.search(r"\bdouble\b", head):
+        return "elementwise float64 (the sample angle's cos/sin)"
     return "elementwise float and other"
 
 
@@ -216,14 +428,10 @@ def _overlap(events, lo, hi):
                for e in events)
 
 
-def profile_frames(render, frames, segments):
-    """Device time of one call of ``render`` (the 1080p main path) under
-    ``torch.profiler`` with CUDA activity, split by kernel family and along
-    the engine's own timeline: per segment the K1 launch and the interval
-    before it back to the previous K1 (the reorder: its kernels and the
-    device's wait for the host's enqueue), and the rest of each frame
-    (camera rays and RNG init, the unsort, the finalize). Returns the
-    profiled host wall in ms, the device busy ms, and the breakdown."""
+def profile_call(render):
+    """One call of ``render`` under ``torch.profiler`` with CUDA activity.
+    Returns the profiled host wall in ms, the device busy ms, the device
+    events in time order and the device time and launches by family."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -249,6 +457,21 @@ def profile_frames(render, frames, segments):
     for e in events:
         ms, n = fam.get(_family(e.name), (0.0, 0))
         fam[_family(e.name)] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
+    return wall_ms, busy_us / 1e3, events, fam
+
+
+def print_profile(what, wall_ms, busy_ms, fam, median_s):
+    print(f"  profiled {what}: host wall {wall_ms:.3f} ms, device busy "
+          f"{busy_ms:.3f} ms; idle share against the unprofiled median "
+          f"{1.0 - busy_ms / (median_s * 1e3):.4f}")
+    for name, (ms, n) in sorted(fam.items(), key=lambda kv: -kv[1][0]):
+        print(f"  {name}: {ms:.3f} ms, {n} launches, share {ms / busy_ms:.4f}")
+
+
+def segment_split(events, frames, segments):
+    """The 1080p call's timeline per segment: the K1 launch and the
+    interval before it back to the previous K1 (the reorder: its kernels
+    and the device's wait for the host's enqueue)."""
     k1 = [e for e in events if "seg_segment_kernel" in e.name]
     rest = [e for e in events if "seg_segment_kernel" not in e.name]
     if len(k1) != frames * segments:
@@ -266,7 +489,40 @@ def profile_frames(render, frames, segments):
                 gap_ms += (hi - lo) / 1e3
                 gap_busy_ms += _overlap(rest, lo, hi) / 1e3
         seg_rows.append((s, k1_ms / frames, gap_ms / frames, gap_busy_ms / frames))
-    return wall_ms, busy_us / 1e3, fam, seg_rows
+    return seg_rows
+
+
+def median_calls(render, reps=5):
+    """Median wall seconds of ``reps`` warm calls of ``render`` (each ends
+    with a device read and a synchronize) and the live rays of the last."""
+    import torch
+
+    walls = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rays = int(render())  # reads the device, after the last kernel
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    return sorted(walls)[len(walls) // 2], walls, rays
+
+
+def counted(render, expect, totals):
+    """Drive one path with every launch counter set to 0 just before and
+    read just after; raise unless exactly the kernels in ``expect`` (name
+    -> required count, or None for "at least one") were launched. Adds the
+    counts to ``totals`` and returns the path's result and its counts."""
+    from raytracerfacility_tpu_torch import kernels
+
+    kernels.reset_launches()
+    out = render()
+    launches = dict(kernels.LAUNCHES)
+    for name, n in launches.items():
+        want = expect.get(name, 0)
+        if (want is None and n < 1) or (want is not None and n != want):
+            raise AssertionError(f"launches {launches}, expected {expect}")
+        totals[name] = totals.get(name, 0) + n
+    return out, launches
 
 
 def main() -> int:
@@ -276,16 +532,19 @@ def main() -> int:
         raise SystemExit("chip_smoke: no CUDA device; the port's kernels need one")
 
     from raytracerfacility_tpu_torch import kernels
+    from raytracerfacility_tpu_torch.enums import EnvironmentalLightingType
     from raytracerfacility_tpu_torch.models.pathtracer import (
         RenderConfig,
         init_frame,
         render_frames_counted,
     )
-    from raytracerfacility_tpu_torch.ops import fused, seg
+    from raytracerfacility_tpu_torch.ops import brute, fused, seg
     from raytracerfacility_tpu_torch.ops.rng import to_int32
-    from raytracerfacility_tpu_torch.scenes import bench_scene
+    from raytracerfacility_tpu_torch.scenes import bench_scene, strands_scene
 
     device = torch.device("cuda", 0)
+    sls = EnvironmentalLightingType.SINGLE_LIGHT_SOURCE
+    totals = {}  # launches of the counted path runs, by kernel
     # phase 0: the card
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -294,68 +553,68 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}")
 
-    # phase 1: build
+    # phase 1: build, one nvcc per source, all at once
     built = kernels.build()
-    print(f"phase 1: kernels built in {built['seconds']:.1f} s -> {built['path']}")
+    print(f"phase 1: kernels built in {built['seconds']:.1f} s -> {built['paths']}")
     for line in built["log"].splitlines():
-        if "registers" in line or "spill" in line:
+        if "registers" in line or "spill" in line or "Compiling entry" in line:
             print("  " + line.strip())
-    kernels.library()
+    for name in kernels.SOURCES:
+        kernels.library(name)
 
-    # phase 2, 3: each kernel against its plain version
+    # phase 2, 3: each path kernel against its plain version, small
     print("phase 2: K1 seg_segment_kernel vs plain, 256x256, 4 segments")
     k1_err = check_k1(device, 256, 256, 4)
     print("phase 3: K2 fused_path_kernel vs plain, 128x128, 4 bounces")
     k2_err = check_k2(device, 128, 128, 1, 4)
+    print("  K2-SLS fused_sls_kernel vs plain, 128x128")
+    k2s_err, _ = check_k2_sls(device, 128, 128, 1)
 
-    # phase 4: the main path at full size, counted
+    # phase 4: the 1080p main path, counted
     scene, cam, env = bench_scene(WIDTH, HEIGHT)
     compiled = scene.build(device)
     cam_s, env_s = cam.state(device), env.state(device)
     config = RenderConfig(width=WIDTH, height=HEIGHT, bounces=BOUNCES, samples=1)
-    kernels.reset_launches()
+
+    def render_1080p(cfg=config, env_state=env_s):
+        return render_frames_counted(compiled, cam_s, env_state, cfg,
+                                     init_frame(WIDTH, HEIGHT, device), FRAMES)
+
     t0 = time.perf_counter()
-    frame, rays = render_frames_counted(compiled, cam_s, env_s, config,
-                                        init_frame(WIDTH, HEIGHT, device), FRAMES)
+    (frame, rays), after4 = counted(
+        render_1080p, {"seg_segment_kernel": (BOUNCES + 1) * FRAMES}, totals)
     rays = int(rays)
     cold_s = time.perf_counter() - t0
-    after4 = dict(kernels.LAUNCHES)
     color = frame.color[..., :3]
     print(f"phase 4: {WIDTH}x{HEIGHT} {BOUNCES} bounces {FRAMES} frames: "
           f"{rays} live rays, cold {cold_s:.3f} s, launches {after4}")
-    if after4["seg_segment_kernel"] != (BOUNCES + 1) * FRAMES:
-        raise AssertionError("the 1080p path did not run every segment on K1")
-    if after4["fused_path_kernel"] != 0:
-        raise AssertionError("the 1080p path launched the whole-path kernel")
     if not (bool(torch.isfinite(frame.color).all()) and float(color.mean()) > 0.0
             and rays > 0 and frame.frame_id == FRAMES):
         raise AssertionError("the 1080p frame is not finite, non-zero and counted")
     if tuple(frame.color.shape) != (HEIGHT, WIDTH, 4):
         raise AssertionError(f"frame shape {tuple(frame.color.shape)}")
 
-    # phase 5: the small-pool path, counted in the same run
+    # phase 5: the small-pool path, counted
     s_scene, s_cam, s_env = bench_scene(SMALL, SMALL)
     s_compiled = s_scene.build(device)
     s_config = RenderConfig(width=SMALL, height=SMALL, bounces=BOUNCES, samples=1)
-    s_frame, s_rays = render_frames_counted(
-        s_compiled, s_cam.state(device), s_env.state(device), s_config,
-        init_frame(SMALL, SMALL, device), FRAMES)
-    launches = dict(kernels.LAUNCHES)
+
+    def render_small():
+        return render_frames_counted(
+            s_compiled, s_cam.state(device), s_env.state(device), s_config,
+            init_frame(SMALL, SMALL, device), FRAMES)
+
+    (s_frame, s_rays), launches = counted(render_small, {"fused_path_kernel": 1},
+                                          totals)
     print(f"phase 5: {SMALL}x{SMALL} x {FRAMES} pooled frames: "
           f"{int(s_rays)} live rays, launches {launches}")
-    if launches["fused_path_kernel"] <= after4["fused_path_kernel"]:
-        raise AssertionError("the small pool did not run on K2")
-    if launches["seg_segment_kernel"] != after4["seg_segment_kernel"]:
-        raise AssertionError("the small pool launched K1")
     if not bool(torch.isfinite(s_frame.color).all()) or int(s_rays) <= 0:
         raise AssertionError("the small frame is not finite and counted")
     # the same pool forced through the segmented engine: same rays
     old = seg.SORTED_MIN_RAYS
     seg.SORTED_MIN_RAYS = 1
     try:
-        f_frame, f_rays = render_frames_counted(
-            s_compiled, s_cam.state(device), s_env.state(device), s_config,
-            init_frame(SMALL, SMALL, device), FRAMES)
+        f_frame, f_rays = render_small()
     finally:
         seg.SORTED_MIN_RAYS = old
     print(f"  forced segmented engine: {int(f_rays)} live rays")
@@ -363,44 +622,95 @@ def main() -> int:
     if abs(int(f_rays) - int(s_rays)) > max(2, 1e-3 * int(s_rays)):
         raise AssertionError("engines disagree on live rays")
 
-    # phase 6: each kernel against its plain version at the main path's
-    # shapes (after the counted run: these launches are not counted)
-    print(f"phase 6: K1 vs plain, {WIDTH}x{HEIGHT}, segments 0 and 1")
+    # phase 6: the config-7 path (wavefront engine, K3), counted
+    c7_scene, c7_cam, c7_env = strands_scene(C7, C7)
+    c7 = c7_scene.build(device)
+    c7_cam_s, c7_env_s = c7_cam.state(device), c7_env.state(device)
+    c7_config = RenderConfig(width=C7, height=C7, bounces=C7_BOUNCES)
+
+    def render_c7(cfg=c7_config, env_state=c7_env_s):
+        return render_frames_counted(c7, c7_cam_s, env_state, cfg,
+                                     init_frame(C7, C7, device), C7_FRAMES)
+
+    t0 = time.perf_counter()
+    (c7_frame, c7_rays), launches = counted(
+        render_c7, {"brute_trace_kernel<false>": None}, totals)
+    c7_cold = time.perf_counter() - t0
+    print(f"phase 6: config 7, {int((c7.geometry.kind == 1).sum())} curve "
+          f"segments, {C7}x{C7} {C7_BOUNCES} bounces {C7_FRAMES} pooled frames: "
+          f"{int(c7_rays)} live rays, cold {c7_cold:.3f} s, launches {launches}")
+    if not (bool(torch.isfinite(c7_frame.color).all())
+            and float(c7_frame.color[..., :3].std()) > 0.01
+            and c7_frame.frame_id == C7_FRAMES):
+        raise AssertionError("the config-7 frame is not finite, varied and counted")
+
+    # phase 7: the SingleLightSource paths, counted
+    sls_env = _sls_env()
+    sls_1080p = RenderConfig(width=WIDTH, height=HEIGHT, bounces=BOUNCES,
+                             lighting_type=sls)
+    (sls_frame, sls_rays), launches = counted(
+        lambda: render_1080p(sls_1080p, sls_env.state(device)),
+        {"fused_sls_kernel": FRAMES}, totals)
+    print(f"phase 7: SLS {WIDTH}x{HEIGHT} {FRAMES} frames: {int(sls_rays)} "
+          f"live rays, launches {launches}")
+    sls_c7 = RenderConfig(width=C7, height=C7, bounces=C7_BOUNCES, lighting_type=sls)
+    (sls7_frame, sls7_rays), launches = counted(
+        lambda: render_c7(sls_c7, sls_env.state(device)),
+        {"brute_trace_kernel<false>": 1, "brute_trace_kernel<true>": 1}, totals)
+    print(f"  SLS config 7, {C7}x{C7} x {C7_FRAMES} frames: {int(sls7_rays)} "
+          f"live rays, launches {launches}")
+    for f in (sls_frame, sls7_frame):
+        if not (bool(torch.isfinite(f.color).all())
+                and float(f.color[..., :3].std()) > 0.01):
+            raise AssertionError("an SLS frame is not finite and varied")
+
+    # phase 8: each kernel against its plain version at its path's shapes
+    # (after the counted runs: these launches are not counted)
+    print(f"phase 8: K1 vs plain, {WIDTH}x{HEIGHT}, segments 0 and 1")
     k1_err = max(k1_err, check_k1(device, WIDTH, HEIGHT, 2))
     print(f"  K2 vs plain, {SMALL}x{SMALL} x {FRAMES} frames, {BOUNCES} bounces")
     k2_err = max(k2_err, check_k2(device, SMALL, SMALL, FRAMES, BOUNCES))
+    print(f"  K2-SLS vs plain, {WIDTH}x{HEIGHT}: the first of the SLS 1080p "
+          f"path's {FRAMES} launches")
+    err, k2s_pool = check_k2_sls(device, WIDTH, HEIGHT, 1)
+    k2s_err = max(k2s_err, err)
+    print(f"  K3 vs plain: config 7's first segment ({C7}x{C7} x {C7_FRAMES} "
+          f"frames) and the SLS config-7 shadow rays, every ray of each")
+    closest = capture_k3(render_c7)[False]
+    k3c_err, k3c_out, k3c_plain_ms = check_k3(*closest, False)
+    shadow = capture_k3(lambda: render_c7(sls_c7, sls_env.state(device)))[True]
+    k3a_err, k3a_out, k3a_plain_ms = check_k3(*shadow, True)
 
-    # phase 7: timings. The 1080p render again, warm, five times: a single
-    # warm call's time has varied by up to a fifth between runs of this
-    # script, so the median of five is reported
-    walls = []
+    # phase 9: timings. The paths again, warm, five times each: a single
+    # warm call's time has varied by up to a fifth between runs
     torch.cuda.reset_peak_memory_stats(device)
-    for _ in range(5):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        _, rays2 = render_frames_counted(compiled, cam_s, env_s, config,
-                                         init_frame(WIDTH, HEIGHT, device), FRAMES)
-        rays2 = int(rays2)  # reads the device, after the last kernel
-        torch.cuda.synchronize()
-        walls.append(time.perf_counter() - t0)
+    warm_s, walls, rays2 = median_calls(lambda: render_1080p()[1])
     peak_mib = torch.cuda.max_memory_allocated(device) / 2**20
-    warm_s = sorted(walls)[len(walls) // 2]
-    mrays = rays2 / warm_s / 1e6
-    print(f"phase 7: warm {FRAMES} frames, {len(walls)} runs "
+    print(f"phase 9: 1080p warm {FRAMES} frames, {len(walls)} runs "
           f"{', '.join(f'{w:.4f}' for w in walls)} s; median {warm_s:.4f} s: "
-          f"{FRAMES / warm_s:.3f} frames/s, {mrays:.3f} Mrays/s "
+          f"{FRAMES / warm_s:.3f} frames/s, {rays2 / warm_s / 1e6:.3f} Mrays/s "
           f"({rays2} live rays); peak device memory {peak_mib:.1f} MiB")
+    torch.cuda.reset_peak_memory_stats(device)
+    c7_s, walls, c7_rays2 = median_calls(lambda: render_c7()[1])
+    peak_mib = torch.cuda.max_memory_allocated(device) / 2**20
+    print(f"  config 7 warm {C7_FRAMES} frames, {len(walls)} runs "
+          f"{', '.join(f'{w:.4f}' for w in walls)} s; median {c7_s:.4f} s: "
+          f"{C7_FRAMES / c7_s:.3f} frames/s, {c7_rays2 / c7_s / 1e6:.3f} Mrays/s "
+          f"({c7_rays2} live rays); peak device memory {peak_mib:.1f} MiB")
+    for what, render, frames in (
+            ("SLS 1080p", lambda: render_1080p(sls_1080p, sls_env.state(device))[1],
+             FRAMES),
+            ("SLS config 7", lambda: render_c7(sls_c7, sls_env.state(device))[1],
+             C7_FRAMES)):
+        med, walls, n = median_calls(render, 3)
+        print(f"  {what} warm, {len(walls)} runs, median {med:.4f} s: "
+              f"{frames / med:.3f} frames/s, {n / med / 1e6:.3f} Mrays/s "
+              f"({n} live rays)")
 
-    # the same call under the profiler: where the device time goes
-    wall_ms, busy_ms, fam, seg_rows = profile_frames(
-        lambda: render_frames_counted(compiled, cam_s, env_s, config,
-                                      init_frame(WIDTH, HEIGHT, device), FRAMES),
-        FRAMES, BOUNCES + 1)
-    print(f"  profiled call: host wall {wall_ms:.3f} ms, device busy "
-          f"{busy_ms:.3f} ms; idle share against the unprofiled median "
-          f"{1.0 - busy_ms / (warm_s * 1e3):.4f}")
-    for name, (ms, n) in sorted(fam.items(), key=lambda kv: -kv[1][0]):
-        print(f"  {name}: {ms:.3f} ms, {n} launches, share {ms / busy_ms:.4f}")
+    # where the device time goes: one more warm call of each main path
+    wall_ms, busy_ms, events, fam = profile_call(render_1080p)
+    print_profile(f"1080p call ({FRAMES} frames)", wall_ms, busy_ms, fam, warm_s)
+    seg_rows = segment_split(events, FRAMES, BOUNCES + 1)
     for s, k_ms, gap_ms, gap_busy in seg_rows:
         print(f"  segment {s} (mean of {FRAMES} frames): K1 {k_ms:.3f} ms, "
               f"reorder interval {gap_ms:.3f} ms, reorder kernels {gap_busy:.3f} ms")
@@ -413,73 +723,174 @@ def main() -> int:
     print(f"  reorder share of segment time: device time "
           f"{gap_busy_f / (gap_busy_f + k1_f):.4f}, intervals under the "
           f"profiler {gap_f / (gap_f + k1_f):.4f}")
+    wall_ms, busy_ms, events, fam = profile_call(render_c7)
+    print_profile(f"config-7 call ({C7_FRAMES} frames)", wall_ms, busy_ms, fam, c7_s)
 
-    # K1 vs plain at the main path's segment 0 (2,073,600 camera rays)
+    # kernel against plain times and bounds, at each kernel's path shapes
+    tables, chunk = compiled.fused, compiled.fused_chunk
+    mat_env = _nbytes(*tables[1:], compiled.fused[3])
+
+    def path_bound(st, n, tmin, best_t, planes_io):
+        planes = [st[k, :n] for k in range(fused.OX, fused.DZ + 1)] + [
+            torch.full((n,), float(tmin), device=device)]
+        tri, _ = culled_tests(tables, chunk, planes, n, best_t)
+        return bound(_nbytes(tables[0]) + mat_env + 4 * planes_io * n, tri, 0), tri
+
     _, env0, o, d, rng = _camera_pool(WIDTH, HEIGHT, 1, device)
     n = o.shape[0]
     st0 = fused.init_state(o, d, torch.ones(n, device=device))
     rng0 = to_int32(rng).contiguous()
-    tables, chunk = compiled.fused, compiled.fused_chunk
-
-    def k1_run():
-        seg.segment(tables, env0, st0.clone(), rng0.clone(), n, True, True, chunk)
-
-    def k1_plain():
-        seg._segment_plain(tables, env0, st0.clone(), rng0.clone(), n, True, True)
-
-    k1_ms = _timed(k1_run, 5)
-    k1_plain_ms = _timed(k1_plain, 1)
-    k1_ms_b = _timed(k1_run, 5)
+    k1_ms = _timed(lambda: seg.segment(tables, env0, st0.clone(), rng0.clone(), n,
+                                       True, True, chunk), 5)
+    k1_plain_ms = _timed(lambda: seg._segment_plain(
+        tables, env0, st0.clone(), rng0.clone(), n, True, True), 1)
+    k1_ms_b = _timed(lambda: seg.segment(tables, env0, st0.clone(), rng0.clone(),
+                                         n, True, True, chunk), 5)
+    best_t = fused._trace_plain(tables[0], st0, 0.0)[0]
+    # 14 planes in (13 state + rng), 14 out, 9 AOV planes out
+    (k1_bound, k1_by), tri = path_bound(st0, n, 0.0, best_t, 14 + 14 + 9)
     print(f"  K1 segment 0 at {n} rays: kernel {k1_ms:.3f} / {k1_ms_b:.3f} ms, "
-          f"plain {k1_plain_ms:.3f} ms")
+          f"plain {k1_plain_ms:.3f} ms; {tri} triangle tests after culling, "
+          f"bound {k1_bound:.4f} ms by {k1_by}")
+    st1, rng1 = st0.clone(), rng0.clone()
+    seg.segment(tables, env0, st1, rng1, n, True, True, chunk)
+    lo, inv_extent = seg._scene_bounds(tables[2])
+    n1 = seg.reorder(st1, rng1, torch.arange(n, device=device), n, lo, inv_extent)
+    k1s1_ms = _timed(lambda: seg.segment(tables, env0, st1.clone(), rng1.clone(),
+                                         n1, False, True, chunk), 5)
+    best_t = fused._trace_plain(tables[0], st1[:, :n1], fused._BOUNCE_TMIN)[0]
+    (k1s1_bound, by), tri = path_bound(st1, n1, fused._BOUNCE_TMIN, best_t, 28)
+    print(f"  K1 segment 1 at {n1} rays: kernel {k1s1_ms:.3f} ms; {tri} triangle "
+          f"tests after culling, bound {k1s1_bound:.4f} ms by {by}")
 
-    # K2 vs plain at the small-pool path's shape
     _, env5, o, d, rng = _camera_pool(SMALL, SMALL, FRAMES, device)
     n5 = o.shape[0]
     rays5 = torch.cat([o.T, d.T, torch.ones(1, n5, device=device)]).contiguous()
     rng5 = to_int32(rng).contiguous()
-
-    def k2_run():
-        fused.fused_path(tables, rays5, rng5, env5, BOUNCES, chunk)
-
-    def k2_plain():
-        fused._fused_path_plain(tables, rays5, rng5, env5, BOUNCES)
-
-    k2_ms = _timed(k2_run, 5)
-    k2_plain_ms = _timed(k2_plain, 1)
-    k2_ms_b = _timed(k2_run, 5)
+    k2_ms = _timed(lambda: fused.fused_path(tables, rays5, rng5, env5, BOUNCES,
+                                            chunk), 5)
+    k2_plain_ms = _timed(lambda: fused._fused_path_plain(tables, rays5, rng5, env5,
+                                                         BOUNCES), 1)
+    k2_ms_b = _timed(lambda: fused.fused_path(tables, rays5, rng5, env5, BOUNCES,
+                                              chunk), 5)
+    # K2's tests: every segment of the plain replay, each culled at its hit
+    st, r5, tri = fused.init_state(o, d, torch.ones(n5, device=device)), rng5, 0
+    for s in range(BOUNCES + 1):
+        live = torch.nonzero(st[fused.ACT] > 0.0)[:, 0]
+        sub = st[:, live].contiguous()
+        tmin = 0.0 if s == 0 else fused._BOUNCE_TMIN
+        hit = fused._trace_plain(tables[0], sub, tmin)
+        tri += path_bound(sub, sub.shape[1], tmin, hit[0], 0)[1]
+        new, new_rng, _ = fused._shade_plain(tables[3], env5, sub, r5[live], hit,
+                                             s == 0, s < BOUNCES)
+        st, r5 = st.clone(), r5.clone()
+        st[:, live], r5[live] = new, new_rng
+    # 8 planes in (7 + rng), 12 out
+    k2_bound, k2_by = bound(_nbytes(tables[0]) + mat_env + 4 * 20 * n5, tri, 0)
     print(f"  K2 at {n5} rays, {BOUNCES} bounces: kernel {k2_ms:.3f} / "
-          f"{k2_ms_b:.3f} ms, plain {k2_plain_ms:.3f} ms")
+          f"{k2_ms_b:.3f} ms, plain {k2_plain_ms:.3f} ms; {tri} triangle tests "
+          f"after culling, bound {k2_bound:.4f} ms by {k2_by}")
 
-    # phase 8: a small render on the card against the same render on the CPU
-    sm_config = RenderConfig(width=32, height=32, bounces=2, samples=1)
-    outs = []
-    for dev in (device, torch.device("cpu")):
-        sc, ca, en = bench_scene(32, 32)
-        fr, ry = render_frames_counted(sc.build(dev), ca.state(dev), en.state(dev),
-                                       sm_config, init_frame(32, 32, dev), 3)
-        outs.append((fr, int(ry)))
-    print(f"phase 8: 32x32 on the card vs the CPU: live rays "
-          f"{outs[0][1]} vs {outs[1][1]}")
-    _check_color(outs[0][0].color.cpu(), outs[1][0].color, "card vs CPU colour")
-    for name in ("normal", "albedo"):
-        q = _check_aov(getattr(outs[0][0], name).cpu(), getattr(outs[1][0], name),
-                       f"card vs CPU {name}")
-        print(f"  card vs CPU {name}: |d| p99.9 {q:.3g}")
-    if abs(outs[0][1] - outs[1][1]) > max(2, 1e-3 * outs[1][1]):
-        raise AssertionError("card and CPU disagree on live rays")
+    # K2-SLS on the first launch of the SLS 1080p path (the same bench
+    # tables as the 1080p compiled scene)
+    s_comp, s_rays, s_rng, s_env = k2s_pool
+    ns = s_rays.shape[1]
+    k2s_ms = _timed(lambda: fused.fused_sls(s_comp.fused, s_rays, s_rng, s_env,
+                                            chunk), 5)
+    k2s_plain_ms = _timed(lambda: fused._fused_sls_plain(s_comp.fused, s_rays,
+                                                         s_rng, s_env), 1)
+    k2s_ms_b = _timed(lambda: fused.fused_sls(s_comp.fused, s_rays, s_rng,
+                                              s_env, chunk), 5)
+    # its tests: the closest-hit sweep culled at each ray's hit, then the
+    # shadow sweep from the plain replay, counted as K3 any-hit's are
+    st = fused.init_state(s_rays[0:3].T, s_rays[3:6].T, s_rays[6])
+    hit = fused._trace_plain(tables[0], st, 0.0)
+    tri_c = path_bound(st, ns, 0.0, hit[0], 0)[1]
+    _, _, _, sh = fused.sls_shadow_rays(s_env, st, s_rng, hit)
+    occluded = brute._trace_plain(tables[0], sh, ns, kinds=False)[1] >= 0
+    tri_s, _ = culled_tests(tables, chunk, list(sh[0:7]), ns,
+                            torch.where(occluded, brute.DEAD, sh[7]))
+    tri_s += int(occluded.sum())
+    # 8 planes in (7 + rng), 12 out
+    k2s_bound, k2s_by = bound(_nbytes(tables[0]) + mat_env + 4 * 20 * ns,
+                              tri_c + tri_s, 0)
+    print(f"  K2-SLS at {ns} rays: kernel {k2s_ms:.3f} / {k2s_ms_b:.3f} ms, plain "
+          f"{k2s_plain_ms:.3f} ms; {tri_c} closest-hit and {tri_s} shadow "
+          f"triangle tests after culling ({int(occluded.sum())} of "
+          f"{int((sh[7] != brute.DEAD).sum())} shadow rays occluded), bound "
+          f"{k2s_bound:.4f} ms by {k2s_by}")
+
+    k3_rows = _nbytes(*c7.pallas_tris)
+    k3 = {}
+    for key, (tabs, planes, n), out, plain_ms in (
+            ("closest", closest, k3c_out, k3c_plain_ms),
+            ("any", shadow, k3a_out, k3a_plain_ms)):
+        any_hit = key == "any"
+        ms = _timed(lambda: brute.trace_planes(tabs, planes, n, any_hit), 5)
+        ms_b = _timed(lambda: brute.trace_planes(tabs, planes, n, any_hit), 5)
+        occluded = out[1] >= 0
+        # any-hit: occluded rays need at least one test, the others every
+        # run they enter up to their tmax; closest: every run entered up
+        # to the hit
+        best_t = torch.where(occluded, brute.DEAD, planes[7]) if any_hit else out[0]
+        tri, cur = culled_tests(tabs, brute.TRI_CHUNK, planes, n, best_t)
+        if any_hit:
+            tri += int(occluded.sum())
+        b, by = bound(k3_rows + 4 * 12 * n, tri, cur)
+        k3[key] = (ms, plain_ms, b, by, n)
+        print(f"  K3 {key} at {n} rays: kernel {ms:.3f} / {ms_b:.3f} ms, plain "
+              f"{plain_ms:.3f} ms; {tri} triangle and {cur} curve tests after "
+              f"culling, bound {b:.4f} ms by {by}")
+
+    # phase 10: small renders on the card against the same renders on the
+    # CPU: the bench scene, and the strands scene under both lightings
+    for what, make, kw in (
+            ("bench 32x32", bench_scene, dict(bounces=2)),
+            ("strands 32x32", strands_scene, dict(bounces=2)),
+            ("strands 32x32 SLS", strands_scene, dict(bounces=2, lighting_type=sls))):
+        outs = []
+        for dev in (device, torch.device("cpu")):
+            sc, ca, en = make(32, 32)
+            en = sls_env if "SLS" in what else en
+            fr, ry = render_frames_counted(
+                sc.build(dev), ca.state(dev), en.state(dev),
+                RenderConfig(width=32, height=32, samples=1, **kw),
+                init_frame(32, 32, dev), 3)
+            outs.append((fr, int(ry)))
+        same = bool((outs[0][0].color.cpu() == outs[1][0].color).all())
+        print(f"phase 10: {what} on the card vs the CPU: live rays "
+              f"{outs[0][1]} vs {outs[1][1]}, colour bit-identical {same}")
+        _check_color(outs[0][0].color.cpu(), outs[1][0].color, f"{what} colour")
+        for name in ("normal", "albedo"):
+            q = _check_aov(getattr(outs[0][0], name).cpu(),
+                           getattr(outs[1][0], name), f"{what} {name}")
+            print(f"  {name}: |d| p99.9 {q:.3g}")
+        if abs(outs[0][1] - outs[1][1]) > max(2, 1e-3 * outs[1][1]):
+            raise AssertionError("card and CPU disagree on live rays")
+
+    def row(name, source, replaces, err, ms, plain_ms, bnd, by):
+        return {"name": name, "route": "cuda",
+                "source": f"raytracerfacility_tpu_torch/csrc/{source}",
+                "replaces": replaces, "launches": totals.get(name, 0),
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bnd, "bound_by": by, "library_ms": None}
 
     print(json.dumps({"kernels": [
-        {"name": "seg_segment_kernel", "route": "cuda",
-         "source": "raytracerfacility_tpu_torch/csrc/path.cu",
-         "replaces": "raytracerfacility_tpu/ops/pallas_seg.py:254",
-         "launches": launches["seg_segment_kernel"], "max_abs_err": k1_err,
-         "ms": k1_ms, "plain_ms": k1_plain_ms},
-        {"name": "fused_path_kernel", "route": "cuda",
-         "source": "raytracerfacility_tpu_torch/csrc/path.cu",
-         "replaces": "raytracerfacility_tpu/ops/pallas_fused.py:217",
-         "launches": launches["fused_path_kernel"], "max_abs_err": k2_err,
-         "ms": k2_ms, "plain_ms": k2_plain_ms},
+        row("seg_segment_kernel", "path.cu",
+            "raytracerfacility_tpu/ops/pallas_seg.py:254", k1_err, k1_ms,
+            k1_plain_ms, k1_bound, k1_by),
+        row("fused_path_kernel", "path.cu",
+            "raytracerfacility_tpu/ops/pallas_fused.py:217", k2_err, k2_ms,
+            k2_plain_ms, k2_bound, k2_by),
+        row("fused_sls_kernel", "path.cu",
+            "raytracerfacility_tpu/ops/pallas_fused.py:424", k2s_err, k2s_ms,
+            k2s_plain_ms, k2s_bound, k2s_by),
+        row("brute_trace_kernel<false>", "brute.cu",
+            "raytracerfacility_tpu/ops/pallas_brute.py:201", k3c_err,
+            *k3["closest"][:4]),
+        row("brute_trace_kernel<true>", "brute.cu",
+            "raytracerfacility_tpu/ops/pallas_brute.py:201", k3a_err,
+            *k3["any"][:4]),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

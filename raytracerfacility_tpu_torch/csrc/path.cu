@@ -10,7 +10,13 @@
 // state in registers, then radiance, first-hit AOVs and a per-block count
 // of live ray-segments.
 //
-// Both are bound by the table rows a ray loads while it traverses (80 bytes
+// fused_sls_kernel (K2-SLS) replaces the SingleLightSource phase of the same
+// TPU kernel (pallas_fused.py:424-639): the camera segment's trace, the sun
+// cone sample, an any-hit shadow ray from the hit point (one thread walks
+// its own shadow ray right after its closest hit, with its own chunk and
+// sub-run culling) and the ambient + sun shade; outputs as K2's.
+//
+// All are bound by the table rows a ray loads while it traverses (80 bytes
 // and about 40 flops per triangle visited, served from L1/L2 when a warp's
 // rays visit the same rows). Per-ray chunk and 16-row sub-run culling keeps
 // a ray from paying for its neighbours' boxes. Shared-memory staging of
@@ -21,8 +27,6 @@
 #include "path_common.cuh"
 
 namespace rtf {
-
-constexpr int kThreads = 128;  // kernels.py THREADS
 
 __device__ __forceinline__ void store_aov(float* aov, int stride, int i,
                                           const Aov& a) {
@@ -92,6 +96,37 @@ seg_segment_kernel(float* __restrict__ st, int* __restrict__ rng,
   if (first) store_aov(aov, n, i, a);
 }
 
+// A camera ray of the (7, n) planes: unit throughput, no radiance.
+__device__ __forceinline__ void load_camera_ray(const float* rays,
+                                                const int* rng, int n, int i,
+                                                Path& p) {
+  p.ox = rays[0 * n + i];
+  p.oy = rays[1 * n + i];
+  p.oz = rays[2 * n + i];
+  p.dx = rays[3 * n + i];
+  p.dy = rays[4 * n + i];
+  p.dz = rays[5 * n + i];
+  p.act = rays[6 * n + i];
+  p.rng = (uint32_t)rng[i];
+  p.tr = p.tg = p.tb = 1.0f;
+  p.rr = p.rg = p.rb = 0.0f;
+}
+
+// counts[blockIdx.x] = the block's sum of `live`: warp sums, then one
+// thread adds the warps. Every thread of the block must call it.
+__device__ __forceinline__ void block_count(int live, int* counts) {
+  for (int off = 16; off > 0; off >>= 1)
+    live += __shfl_down_sync(0xffffffffu, live, off);
+  __shared__ int warp_live[kThreads / 32];
+  if ((threadIdx.x & 31) == 0) warp_live[threadIdx.x >> 5] = live;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int sum = 0;
+    for (int w = 0; w < kThreads / 32; ++w) sum += warp_live[w];
+    counts[blockIdx.x] = sum;
+  }
+}
+
 // rays: (7, n) planes origin xyz, direction xyz, valid; rng: (n,).
 // out: (12, n) planes radiance rgb, normal xyz, albedo rgb, position xyz.
 // counts: (gridDim.x,) live ray-segments per block.
@@ -103,16 +138,7 @@ fused_path_kernel(const float* __restrict__ rays, const int* __restrict__ rng,
   int live = 0;
   if (i < n) {
     Path p;
-    p.ox = rays[0 * n + i];
-    p.oy = rays[1 * n + i];
-    p.oz = rays[2 * n + i];
-    p.dx = rays[3 * n + i];
-    p.dy = rays[4 * n + i];
-    p.dz = rays[5 * n + i];
-    p.act = rays[6 * n + i];
-    p.rng = (uint32_t)rng[i];
-    p.tr = p.tg = p.tb = 1.0f;
-    p.rr = p.rg = p.rb = 0.0f;
+    load_camera_ray(rays, rng, n, i, p);
     Aov a;
     no_hit_aov(a, 0.0f, 0.0f, 0.0f);
     float tmin = env[10];  // camera rays; bounce rays start at 1e-3
@@ -128,17 +154,34 @@ fused_path_kernel(const float* __restrict__ rays, const int* __restrict__ rng,
     out[2 * n + i] = p.rb;
     store_aov(out + 3 * n, n, i, a);
   }
-  // per-block live count: warp sums, then one thread adds the warps
-  for (int off = 16; off > 0; off >>= 1)
-    live += __shfl_down_sync(0xffffffffu, live, off);
-  __shared__ int warp_live[kThreads / 32];
-  if ((threadIdx.x & 31) == 0) warp_live[threadIdx.x >> 5] = live;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    int sum = 0;
-    for (int w = 0; w < kThreads / 32; ++w) sum += warp_live[w];
-    counts[blockIdx.x] = sum;
+  block_count(live, counts);
+}
+
+// K2-SLS: as fused_path_kernel, one segment with the SingleLightSource
+// shade. rays, rng, out and counts as there.
+__global__ void __launch_bounds__(kThreads)
+fused_sls_kernel(const float* __restrict__ rays, const int* __restrict__ rng,
+                 float* __restrict__ out, int* __restrict__ counts, Scene s,
+                 const float* __restrict__ env, int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  int live = 0;
+  if (i < n) {
+    Path p;
+    load_camera_ray(rays, rng, n, i, p);
+    Aov a;
+    no_hit_aov(a, 0.0f, 0.0f, 0.0f);
+    if (p.act > 0.0f) {
+      live = 1;
+      Hit h;
+      trace(s, p, env[10], h);
+      shade_sls(s, env, p, h, a);
+    }
+    out[0 * n + i] = p.rr;
+    out[1 * n + i] = p.rg;
+    out[2 * n + i] = p.rb;
+    store_aov(out + 3 * n, n, i, a);
   }
+  block_count(live, counts);
 }
 
 }  // namespace rtf
@@ -170,6 +213,20 @@ int rtf_fused_path(const void* rays, const void* rng, void* out, void* counts,
   rtf::fused_path_kernel<<<blocks, rtf::kThreads, 0, (cudaStream_t)stream>>>(
       (const float*)rays, (const int*)rng, (float*)out, (int*)counts, s,
       (const float*)env, n, bounces);
+  return (int)cudaGetLastError();
+}
+
+int rtf_fused_sls(const void* rays, const void* rng, void* out, void* counts,
+                  const void* tris, const void* subs, const void* chunks,
+                  const void* mats, const void* env, int n, int nchunks,
+                  int chunk, int sub, void* stream) {
+  const rtf::Scene s{(const float*)tris, (const float*)subs,
+                     (const float*)chunks, (const float*)mats, nchunks, chunk,
+                     sub};
+  const int blocks = (n + rtf::kThreads - 1) / rtf::kThreads;
+  rtf::fused_sls_kernel<<<blocks, rtf::kThreads, 0, (cudaStream_t)stream>>>(
+      (const float*)rays, (const int*)rng, (float*)out, (int*)counts, s,
+      (const float*)env, n);
   return (int)cudaGetLastError();
 }
 

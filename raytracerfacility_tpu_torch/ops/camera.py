@@ -15,7 +15,12 @@ import dataclasses
 import numpy as np
 import torch
 
-from raytracerfacility_tpu_torch.ops.math3d import TWO_PI, normalize
+from raytracerfacility_tpu_torch.ops.math3d import (
+    TWO_PI,
+    cos_sin,
+    normalize,
+    true_div,
+)
 from raytracerfacility_tpu_torch.ops.rng import lcg_next
 
 
@@ -186,8 +191,8 @@ def generate_camera_rays(
     half_y = float(np.float32(height / 2.0))
     state, jx = lcg_next(state)
     state, jy = lcg_next(state)
-    sx = (ix + jx - half_x) / half_x
-    sy = (iy + jy - half_y) / half_y
+    sx = true_div(ix + jx - half_x, half_x)
+    sy = true_div(iy + jy - half_y, half_y)
 
     inv = camera.inverse_projection_view  # (4, 4), row-major, column vectors
 
@@ -210,9 +215,10 @@ def generate_camera_rays(
     convergence = start + primary_dir * camera.focal_length
     state, u_angle = lcg_next(state)
     angle = u_angle * float(np.float32(TWO_PI / 2.0)) * 2.0  # rand * pi * 2
+    cos_a, sin_a = cos_sin(angle)
     aperture_point = start + camera.aperture * (
-        camera.horizontal * torch.sin(angle)[..., None]
-        + camera.vertical * torch.cos(angle)[..., None]
+        camera.horizontal * sin_a[..., None]
+        + camera.vertical * cos_a[..., None]
     )
     ray_dir = normalize(convergence - aperture_point)
     return state, aperture_point, ray_dir

@@ -1,16 +1,18 @@
 """Scene bake: store -> CompiledScene tensors.
 
 Port of ``raytracerfacility_tpu/scene/builder.py::build_compiled_scene``,
-cut to what the camera path needs: the triangle bake of DEFAULT meshes and
-INSTANCED meshes (per-instance matrices), Default materials in slots of
-first use (ref SBT record order, builder.py:448-483), and the packed
+cut to what the ported paths need: the triangle bake of DEFAULT meshes and
+INSTANCED meshes (per-instance matrices), the analytic curve bake of
+CURVE strands (``_bake_analytic_curves``), Default materials in slots of
+first use (ref SBT record order, builder.py:448-483), K3's packed trace
+table (``ops/brute.py``) and, for scenes without curves, the packed
 trace+shade tables of ``ops/fused.py``. The bake runs in host numpy (the
 vertex-prep kernels of ref RayTracer.cu:1148-1192); the results move to
 the target device once.
 
-Textures, BTF materials, vertex-color materials, subsurface, curves,
-strands, skinning and the incremental rebuild cache are not ported yet
-and raise ``NotImplementedError``.
+Textures, BTF materials, vertex-color materials, subsurface, tessellated
+strands (``curve_mode="tessellate"``), skinning and the incremental
+rebuild cache are not ported yet and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -20,7 +22,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from raytracerfacility_tpu_torch.enums import MaterialType, RendererType
+from raytracerfacility_tpu_torch.enums import GeometryType, MaterialType, RendererType
 from raytracerfacility_tpu_torch.scene.compiled import (
     CompiledScene,
     GeometryBuffers,
@@ -39,12 +41,19 @@ def _geometry_object_bake(geom) -> dict | None:
     c0, c1, c2 = tris[:, 0], tris[:, 1], tris[:, 2]
     p = mesh.positions
     v0 = p[c0]
+
+    def corners(a):
+        return np.stack([a[c0], a[c1], a[c2]], axis=1)
+
     return {
         "v0": v0,
         "e1": p[c1] - v0,
         "e2": p[c2] - v0,
-        "normal": np.stack([mesh.normals[c0], mesh.normals[c1],
-                            mesh.normals[c2]], axis=1),
+        "normal": corners(mesh.normals),
+        "tex_coord": corners(mesh.tex_coords),
+        "color": corners(mesh.colors),
+        "data": corners(mesh.data),
+        "kind": np.zeros(mesh.num_triangles, np.int32),
     }
 
 
@@ -52,7 +61,8 @@ def _transform_part_batched(obj: dict, matrices: np.ndarray) -> dict:
     """Apply one or many instance transforms to an object-space bake as ONE
     batched einsum (ref CopyVertices*Kernel RayTracer.cu:1148-1192):
     positions rotate+translate, edges and corner normals rotate (plain
-    matrix like the reference, RayDataDefinations.hpp:375)."""
+    matrix like the reference, RayDataDefinations.hpp:375); the other
+    corner attributes repeat per instance."""
     m = np.asarray(matrices, np.float32)
     if m.ndim == 2:
         m = m[None]
@@ -72,7 +82,74 @@ def _transform_part_batched(obj: dict, matrices: np.ndarray) -> dict:
         "e1": rot_pts(obj["e1"]).astype(np.float32),
         "e2": rot_pts(obj["e2"]).astype(np.float32),
         "normal": rot_corners(obj["normal"]).astype(np.float32),
+        **{k: np.tile(obj[k], (m.shape[0],) + (1,) * (obj[k].ndim - 1))
+           for k in ("tex_coord", "color", "data", "kind")},
     }
+
+
+def _transform_points(matrix: np.ndarray, pts: np.ndarray) -> np.ndarray:
+    return pts @ matrix[:3, :3].T + matrix[:3, 3]
+
+
+def _bake_analytic_curves(geom, transform: np.ndarray, mode: str):
+    """Bake strands into sphere-swept linear rows (kind 1; encoding in
+    ops/curve.py) under one instance transform. Radii scale by the
+    transform's uniform-scale factor. The parent spline's world control
+    points ride the normal rows, its radii, order and parameter range the
+    data rows, for the exact-surface refinement at shade time."""
+    from raytracerfacility_tpu_torch.ops.curve import subdivide_strand_segments
+
+    sub = subdivide_strand_segments(geom.strand_points, geom.curve_segments,
+                                    mode, tex_coords=geom.strand_tex_coords)
+    if sub is None:
+        return None
+    p0 = _transform_points(transform, sub["p0"])
+    p1 = _transform_points(transform, sub["p1"])
+    scale = float(np.linalg.norm(transform[:3, 0]))
+    r0 = sub["r0"] * scale
+    r1 = sub["r1"] * scale
+    n = p0.shape[0]
+    tex = np.zeros((n, 3, 2), np.float32)
+    tex[:, 0, 0] = sub["tex0"]
+    tex[:, 1, 0] = sub["tex1"]
+    color = np.zeros((n, 3, 4), np.float32)
+    color[:, 0] = sub["color0"]
+    color[:, 1] = sub["color1"]
+    e2 = np.zeros((n, 3), np.float32)
+    e2[:, 0] = r0
+    e2[:, 1] = r1 - r0
+    ctrl_w = _transform_points(
+        transform, sub["ctrl"].reshape(-1, 3)).reshape(n, 4, 3)
+    ctrl_r = sub["ctrl_r"] * scale
+    data = np.zeros((n, 3, 4), np.float32)
+    data[:, 0, :3] = ctrl_w[:, 3, :]  # c3
+    data[:, 0, 3] = ctrl_r[:, 3]  # r3
+    data[:, 1, :3] = ctrl_r[:, :3]  # r0, r1, r2
+    data[:, 1, 3] = sub["order"]
+    data[:, 2, 0] = sub["u0"]
+    data[:, 2, 1] = sub["u1"]
+    return {
+        "v0": p0.astype(np.float32),
+        "e1": (p1 - p0).astype(np.float32),
+        "e2": e2,
+        "normal": ctrl_w[:, 0:3, :].astype(np.float32),  # c0, c1, c2
+        "tex_coord": tex,
+        "color": color,
+        "data": data,
+        "kind": np.ones(n, np.int32),
+    }
+
+
+def _curve_mode(geom) -> str:
+    """The spline basis of a CURVE geometry (ref builder.py:355-364);
+    tessellated strands are refused."""
+    if geom.curve_mode != "analytic":
+        raise NotImplementedError(
+            f"geometry {geom.handle}: curve_mode={geom.curve_mode!r} "
+            "(tessellated strands) is not ported")
+    return {GeometryType.LINEAR: "linear",
+            GeometryType.QUADRATIC_BSPLINE: "quadratic",
+            GeometryType.CUBIC_BSPLINE: "cubic"}.get(geom.geometry_type, "linear")
 
 
 def _check_material(mat) -> None:
@@ -95,8 +172,9 @@ def _check_material(mat) -> None:
 
 
 def build_compiled_scene(scene, device) -> CompiledScene:
-    """Compile the scene store onto ``device``. The triangle count pads to
-    a multiple of 256 with degenerate, never-hit triangles."""
+    """Compile the scene store onto ``device``. The primitive count pads
+    to a multiple of 256 with degenerate, never-hit triangles."""
+    from raytracerfacility_tpu_torch.ops.brute import pack_tri_table
     from raytracerfacility_tpu_torch.ops.fused import auto_chunk, pack_fused_tables
 
     device = torch.device(device)
@@ -128,11 +206,12 @@ def build_compiled_scene(scene, device) -> CompiledScene:
         if geom is None or inst.material_key not in scene.materials:
             continue
         if geom.renderer_type not in (RendererType.DEFAULT,
-                                      RendererType.INSTANCED):
+                                      RendererType.INSTANCED,
+                                      RendererType.CURVE):
             raise NotImplementedError(
                 f"geometry {inst.geometry_key}: "
                 f"{RendererType(geom.renderer_type).name} geometry "
-                "(skinning, curves, strands) is not ported")
+                "(skinning) is not ported")
         slot = len(inst_material)
         inst_material.append(material_index(inst.material_key))
         groups.setdefault((inst.geometry_key, geom.version),
@@ -140,6 +219,16 @@ def build_compiled_scene(scene, device) -> CompiledScene:
 
     parts = []
     for geom, members in groups.values():
+        if geom.renderer_type == RendererType.CURVE:
+            # one bake per instance: the radii depend on its scale
+            mode = _curve_mode(geom)
+            for inst, slot in members:
+                part = _bake_analytic_curves(geom, inst.global_transform, mode)
+                if part is not None:
+                    part["instance"] = np.full(part["v0"].shape[0], slot,
+                                               np.int32)
+                    parts.append(part)
+            continue
         obj = _geometry_object_bake(geom)
         if obj is None:
             continue
@@ -164,7 +253,11 @@ def build_compiled_scene(scene, device) -> CompiledScene:
             "e1": np.zeros((1, 3), np.float32),
             "e2": np.zeros((1, 3), np.float32),
             "normal": np.zeros((1, 3, 3), np.float32),
+            "tex_coord": np.zeros((1, 3, 2), np.float32),
+            "color": np.ones((1, 3, 4), np.float32),
+            "data": np.zeros((1, 3, 4), np.float32),
             "instance": np.zeros(1, np.int32),
+            "kind": np.zeros(1, np.int32),
         })
         if not inst_material:
             inst_material.append(0)
@@ -181,8 +274,10 @@ def build_compiled_scene(scene, device) -> CompiledScene:
             merged[k] = np.concatenate(
                 [arr, np.zeros((pad,) + arr.shape[1:], arr.dtype)], axis=0)
 
+    has_curves = bool((merged["kind"] != 0).any())
     geometry = GeometryBuffers(
-        **{k: torch.as_tensor(v, device=device) for k, v in merged.items()})
+        **{k: torch.as_tensor(v, device=device) for k, v in merged.items()},
+        has_curves=has_curves)
     materials = MaterialTable(
         albedo=torch.as_tensor(np.stack([m["albedo"] for m in mat_list]),
                                device=device),
@@ -199,7 +294,11 @@ def build_compiled_scene(scene, device) -> CompiledScene:
         instance_material=torch.tensor(inst_material, dtype=torch.int32,
                                        device=device),
         num_tris=int(num_tris),
+        pallas_tris=pack_tri_table(geometry.v0, geometry.e1, geometry.e2,
+                                   geometry.kind if has_curves else None),
     )
+    if has_curves:  # the path engines' tables hold triangles only
+        return compiled
     chunk = auto_chunk(geometry.num_triangles)
     return dataclasses.replace(
         compiled, fused=pack_fused_tables(compiled, chunk=chunk),

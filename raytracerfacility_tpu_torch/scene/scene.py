@@ -38,6 +38,11 @@ class RayTracedGeometry:
     mesh: Mesh | None = None
     # Instanced (ref CopyVerticesInstancedKernel, RayTracer.cu:1148-1175)
     instance_matrices: np.ndarray | None = None  # (P, 4, 4)
+    # Curves (ref Curves struct, RayDataDefinations.hpp:21-120)
+    strand_points: np.ndarray | None = None  # (S, >=8): pos3, thickness, color4
+    strand_tex_coords: np.ndarray | None = None  # (S,)
+    curve_segments: np.ndarray | None = None  # (C,) int32 start point index
+    curve_mode: str = "analytic"  # "analytic" (sphere-swept) | "tessellate"
 
     version: int = -1
     handle: int = 0

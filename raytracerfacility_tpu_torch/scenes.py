@@ -1,7 +1,8 @@
 """Benchmark scenes.
 
 Port of ``__graft_entry__._bench_scene`` (``__graft_entry__.py:8-70``),
-which the port cannot import: the reference's entry module pulls in JAX.
+which the port cannot import: the reference's entry module pulls in JAX,
+and of the scene and camera of ``bench.py::run_config7``.
 """
 
 from __future__ import annotations
@@ -11,6 +12,7 @@ import numpy as np
 from raytracerfacility_tpu_torch.enums import RendererType
 from raytracerfacility_tpu_torch.models.renderer import EnvironmentProperties
 from raytracerfacility_tpu_torch.ops.camera import CameraProperties
+from raytracerfacility_tpu_torch.scene.procedural import build_strands_scene
 from raytracerfacility_tpu_torch.scene import (
     MaterialProperties,
     RayTracerScene,
@@ -71,3 +73,15 @@ def bench_scene(width: int, height: int, fov: float = 70.0):
     cam.look_at_target((0.0, 1.1, 2.6), (0.0, 0.8, 0.0))
     env = EnvironmentProperties(skylight_intensity=1.0)
     return scene, cam, env
+
+
+def strands_scene(width: int, height: int, n_strands: int = 800, seed: int = 7):
+    """BASELINE config 7 (``bench.py:297-321``): a hair tuft of
+    ``n_strands`` cubic B-spline strands over a ground plane (4,800
+    sphere-swept segments at 800 strands), seen by the bench's 50-degree
+    camera. Returns (scene store, CameraProperties,
+    EnvironmentProperties)."""
+    cam = CameraProperties(fov=50.0, size=(width, height))
+    cam.look_at_target((0.0, 0.9, 2.4), (0.0, 0.55, 0.0))
+    return (build_strands_scene(n_strands=n_strands, seed=seed), cam,
+            EnvironmentProperties())

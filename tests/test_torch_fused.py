@@ -84,14 +84,21 @@ def test_k2_counts_live_ray_segments(pool):
 
 
 def test_single_light_source_pool_raises(pool):
-    """K2's SingleLightSource phase is not ported: lighting=1 raises."""
+    """K2's SingleLightSource phase runs its plain version on CPU tensors
+    only: a pool on another device (here ``meta``) raises instead of
+    falling back (its parity with the reference is in test_torch_sls.py)."""
     compiled, env_vec, (o, d, rng, valid) = pool
-    with pytest.raises(NotImplementedError):
-        fused.render_pool_fused(
-            port_tables_from_reference(compiled), torch.as_tensor(o),
-            torch.as_tensor(d), torch.as_tensor(rng.astype(np.int64)),
-            torch.as_tensor(valid), torch.as_tensor(env_vec), bounces=1,
-            chunk=compiled.fused_chunk, lighting=1)
+    args = (torch.as_tensor(o), torch.as_tensor(d),
+            torch.as_tensor(rng.astype(np.int64)), torch.as_tensor(valid),
+            torch.as_tensor(env_vec))
+    tables = port_tables_from_reference(compiled)
+    out = fused.render_pool_fused(tables, *args, bounces=1,
+                                  chunk=compiled.fused_chunk, lighting=1)
+    assert int(out[4]) == int(valid.sum())
+    with pytest.raises(ValueError):
+        fused.render_pool_fused(tuple(t.to("meta") for t in tables),
+                                *(a.to("meta") for a in args), bounces=1,
+                                chunk=compiled.fused_chunk, lighting=1)
 
 
 def test_pack_material_table_layout():

@@ -21,22 +21,26 @@ from raytracerfacility_tpu_torch.enums import (
 )
 from raytracerfacility_tpu_torch.models import pathtracer as pt
 from raytracerfacility_tpu_torch.models.renderer import EnvironmentProperties
-from raytracerfacility_tpu_torch.ops import fused, seg
+from raytracerfacility_tpu_torch.ops import brute, fused, seg
 from raytracerfacility_tpu_torch.scene import MaterialProperties
-from raytracerfacility_tpu_torch.scenes import bench_scene
+from raytracerfacility_tpu_torch.scenes import bench_scene, strands_scene
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 
 _RENDER_8X8 = """
 import sys
+from raytracerfacility_tpu_torch.enums import EnvironmentalLightingType
 from raytracerfacility_tpu_torch.models.pathtracer import (
     RenderConfig, init_frame, render_frames_counted)
-from raytracerfacility_tpu_torch.scenes import bench_scene
-scene, cam, env = bench_scene(8, 8)
-frame, rays = render_frames_counted(
-    scene.build("cpu"), cam.state("cpu"), env.state("cpu"),
-    RenderConfig(width=8, height=8, bounces=2), init_frame(8, 8, "cpu"), 2)
-assert frame.color.shape == (8, 8, 4) and int(rays) > 0
+from raytracerfacility_tpu_torch.scenes import bench_scene, strands_scene
+for make in (bench_scene, lambda w, h: strands_scene(w, h, n_strands=40)):
+    for lighting in EnvironmentalLightingType.SCENE, EnvironmentalLightingType.SINGLE_LIGHT_SOURCE:
+        scene, cam, env = make(8, 8)
+        frame, rays = render_frames_counted(
+            scene.build("cpu"), cam.state("cpu"), env.state("cpu"),
+            RenderConfig(width=8, height=8, bounces=2, lighting_type=lighting),
+            init_frame(8, 8, "cpu"), 2)
+        assert frame.color.shape == (8, 8, 4) and int(rays) > 0
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "raytracerfacility_tpu"))
 print("LOADED", bad)
@@ -75,6 +79,13 @@ def test_wrappers_do_not_fall_back_off_the_cpu():
     with pytest.raises(ValueError):
         fused.fused_path(tables, torch.zeros((7, 64), device="meta"), rng,
                          env, 2, 256)
+    with pytest.raises(ValueError):
+        fused.fused_sls(tables, torch.zeros((7, 64), device="meta"), rng,
+                        env, 256)
+    trace = tuple(t.to("meta") for t in scene.build("cpu").pallas_tris)
+    with pytest.raises(ValueError):
+        brute.trace_planes(trace, [torch.zeros(64, device="meta")] * 8, 64,
+                           any_hit=False)
 
 
 @pytest.mark.parametrize("bad", ["chunk", "columns", "env", "offsets"])
@@ -99,6 +110,24 @@ def test_kernel_inputs_are_validated(bad):
                                   torch.device("cpu"))
 
 
+def test_package_data_ships_kernel_sources():
+    """An installed package carries every source kernels.py compiles:
+    pyproject's package data names them, and they sit where kernels.py
+    looks for them, beside the installed module."""
+    import fnmatch
+    import tomllib
+
+    config = tomllib.loads((REPO / "pyproject.toml").read_text())
+    patterns = config["tool"]["setuptools"]["package-data"][
+        "raytracerfacility_tpu_torch"]
+    csrc = pathlib.Path(kernels.__file__).parent / "csrc"
+    needed = {kernels._COMMON, *kernels.SOURCES.values()}
+    assert needed == {p.name for p in csrc.iterdir()}
+    for name in needed:
+        assert (csrc / name).is_file()
+        assert any(fnmatch.fnmatch(f"csrc/{name}", pat) for pat in patterns), name
+
+
 def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):
     monkeypatch.setattr(kernels, "BUILD_DIR", tmp_path)
     monkeypatch.setenv("PATH", str(tmp_path))
@@ -116,31 +145,31 @@ def _render(scene, env_props, **config):
 
 
 @pytest.mark.parametrize("case", [
-    "single_light_source", "skydome", "cubemap", "alpha_test", "btf_config",
-    "subsurface_config", "spp_without_lanes"])
+    "skydome_strands", "skydome", "cubemap", "alpha_test", "btf_config",
+    "subsurface_config", "cubemap_strands"])
 def test_render_outside_envelope_raises(case):
-    scene, _, env = bench_scene(8, 8)
+    """What the port still refuses; the strands cases take the wavefront
+    engine rather than the path engines."""
+    scene, _, env = (strands_scene if case.endswith("_strands")
+                     else bench_scene)(8, 8)
     config = {}
-    if case == "single_light_source":
-        config["lighting_type"] = EnvironmentalLightingType.SINGLE_LIGHT_SOURCE
-    elif case == "skydome":
+    if case.startswith("skydome"):
         config["lighting_type"] = EnvironmentalLightingType.SKYDOME
-    elif case == "cubemap":
+    elif case.startswith("cubemap"):
         env = EnvironmentProperties(cubemap=np.ones((6, 4, 4, 3), np.float32))
     elif case == "alpha_test":
         config["alpha_test"] = True
     elif case == "btf_config":
         config["enable_btf"] = True
-    elif case == "subsurface_config":
-        config["enable_subsurface"] = True
     else:
-        config["samples"] = 2
+        config["enable_subsurface"] = True
     with pytest.raises(NotImplementedError):
         _render(scene, env, **config)
 
 
 @pytest.mark.parametrize("case", [
-    "texture", "btf_material", "vertex_color", "subsurface", "skinned", "curve"])
+    "texture", "btf_material", "vertex_color", "subsurface", "skinned",
+    "tessellated_curve"])
 def test_scene_outside_envelope_raises(case):
     scene, _, _ = bench_scene(8, 8)
     if case == "texture":
@@ -155,8 +184,11 @@ def test_scene_outside_envelope_raises(case):
     elif case == "subsurface":
         scene.upsert_material(51, version=1, properties=MaterialProperties(
             subsurface_factor=0.5))
+    elif case == "skinned":
+        scene.upsert_geometry(50, version=1, renderer_type=RendererType.SKINNED)
     else:
-        kind = RendererType.SKINNED if case == "skinned" else RendererType.CURVE
-        scene.upsert_geometry(50, version=1, renderer_type=kind)
+        scene, _, _ = strands_scene(8, 8, n_strands=4)
+        scene.upsert_geometry(1, version=1, renderer_type=RendererType.CURVE,
+                              curve_mode="tessellate")
     with pytest.raises(NotImplementedError):
         scene.build("cpu")

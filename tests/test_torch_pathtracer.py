@@ -112,6 +112,23 @@ def test_spp_in_lanes_matches_reference(scenes):
     assert_count_close(rays, ref_rays)
 
 
+def test_sequential_spp_matches_reference(scenes):
+    """Two samples without ``samples_in_lanes``: each pixel's RNG stream
+    runs on through both samples, one wavefront pass after the other, in
+    both packages (ref pathtracer.py:1216-1240)."""
+    (rc, rcam, renv), (pc, pcam, penv) = scenes
+    ref_frame, ref_rays = ref_pt.render_frame_counted_jit(
+        rc, rcam, renv, _config(ref_pt, samples=2, bounces=1),
+        ref_pt.init_frame(W, H))
+    kernels.reset_launches()
+    frame, rays = pt.render_frame_counted(
+        pc, pcam, penv, _config(pt, samples=2, bounces=1),
+        pt.init_frame(W, H, "cpu"))
+    _compare_frames(frame, ref_frame)
+    assert_count_close(rays, ref_rays)
+    assert int(rays) > 2 * W * H
+
+
 def test_depth_output(scenes):
     (rc, rcam, renv), (pc, pcam, penv) = scenes
     ref_frame, _ = ref_pt.render_frame_counted_jit(
