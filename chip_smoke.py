@@ -16,6 +16,12 @@ its kernels:
   2 bounces, 8 pooled frames: the wavefront engine, K3 closest hit;
 - SingleLightSource lighting on the 1080p bench scene (K2-SLS) and on the
   strands scene (the wavefront engine, K3 closest hit and any-hit).
+- shared-geometry instancing (K4): the 52 x 52 sorghum canopy of BASELINE
+  config 6 (2,705 instance records) and the 1024 x 262,144-triangle forest
+  of ``scripts/bench_instanced.py``, 512x512 primary rays each, through
+  ``compile_shared_instanced`` / ``pack_instanced_tables`` and
+  ``trace_closest_instanced``; the canopy also against K3 on its
+  world-space bake.
 
 It times the kernels and the paths, splits the device time of one 1080p
 call and of one config-7 call by kernel family (``torch.profiler``, CUDA
@@ -390,6 +396,340 @@ def _nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+def _median_ms(fn, reps=5):
+    """Median milliseconds of ``reps`` warm runs of ``fn()``, each timed
+    alone with CUDA events."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return sorted(times)[reps // 2], times
+
+
+# The instanced paths: BASELINE config 6 (bench.py:272-294), the 52 x 52
+# canopy at 512x512, and the forest of scripts/bench_instanced.py, 1024
+# trees of 262,144 triangles under 512x512 primary rays, whose plain check
+# takes every 64th ray
+C6 = 512
+FOREST_INST, FOREST_TRIS, FOREST_STRIDE = 1024, 262144, 64
+INST_TMIN, INST_TMAX = 1e-3, 1e9
+# K4 against K3 on the world-space bake (tests/test_instanced.py:210-216)
+WORLD_HIT_AGREE, WORLD_T_TOL = 0.99, 2e-3
+_OPEN = 3.4e38
+_INST_KEYS = ("table", "sub_aabbs", "obj_chunks", "inst", "inst_box", "inst_chunks")
+
+
+def _primary_rays(cam, width, height, device):
+    """One frame of the port's camera rays (``ops/camera.py``, frame 0's
+    RNG): origin and direction, (width * height, 3) each."""
+    import torch
+
+    from raytracerfacility_tpu_torch.ops.camera import generate_camera_rays
+    from raytracerfacility_tpu_torch.ops.rng import lcg_init
+
+    iy, ix = torch.meshgrid(
+        torch.arange(height, dtype=torch.float32, device=device),
+        torch.arange(width, dtype=torch.float32, device=device), indexing="ij")
+    rng = lcg_init((ix + width * iy).to(torch.int64),
+                   torch.zeros((), dtype=torch.int64, device=device))
+    _, o, d = generate_camera_rays(cam.state(device), rng, ix, iy, width, height)
+    return o.reshape(-1, 3), d.reshape(-1, 3)
+
+
+def _opened(tables, keys):
+    """``tables`` with every box of ``keys`` opened to the whole space."""
+    out = dict(tables)
+    for key in keys:
+        box = tables[key].clone()
+        box[:, 0:3], box[:, 3:6] = -_OPEN, _OPEN
+        out[key] = box
+    return out
+
+
+def check_k4(tables, planes, n):
+    """K4 against its plain version on the ``n`` rays of ``planes``: the
+    decisions (prim, instance, hence hit) equal on >= 99.9% of all rays and
+    of the rays that hit in either, and t, u, v equal wherever the
+    decisions are. The rays that differ go through the kernel again with
+    the instance boxes opened, then with every box opened: where it then
+    equals the plain version, that cull decided them. Returns (max |d| of t
+    over rays both hit, kernel output, plain ms: one call, CUDA events)."""
+    import torch
+
+    from raytracerfacility_tpu_torch.ops import inst
+
+    out_k = inst.trace_planes(tables, planes, n)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out_p = inst._trace_plain(tables, torch.stack(planes), n)
+    end.record()
+    end.synchronize()
+    same = (out_k[1] == out_p[1]) & (out_k[2] == out_p[2])
+    hit_k, hit_p = out_k[1] >= 0, out_p[1] >= 0
+    either, both = hit_k | hit_p, hit_k & hit_p
+    agree = float(same.float().mean())
+    agree_hits = float(same[either].float().mean()) if bool(either.any()) else 1.0
+    rest = int(((out_k[[0, 3, 4]] != out_p[[0, 3, 4]]).any(0) & same).sum())
+    err = float((out_k[0][both] - out_p[0][both]).abs().max()) if bool(both.any()) else 0.0
+    diff = torch.nonzero(~same)[:, 0]
+    print(f"  K4 vs plain: {n} rays, {int(hit_k.sum())} hits (plain "
+          f"{int(hit_p.sum())}); prim and instance equal on {agree:.6f} of them "
+          f"and on {agree_hits:.6f} of the {int(either.sum())} that hit in "
+          f"either ({diff.numel()} differ); t, u, v differ on {rest} rays with "
+          f"equal decisions; t max |d| over rays both hit {err:.3g}")
+    if diff.numel():
+        sel = [p[diff].contiguous() for p in planes]
+        for what, keys in (("the instance boxes", ("inst_box",)),
+                           ("every box", ("inst_box", "obj_chunks", "sub_aabbs"))):
+            o = inst.trace_planes(_opened(tables, keys), sel, diff.numel())
+            print(f"    with {what} opened the kernel equals the plain version "
+                  f"on {int((o == out_p[:, diff]).all(0).sum())} of them")
+        for j in range(min(4, diff.numel())):
+            i = int(diff[j])
+            print(f"    ray {i}: kernel (t, prim, inst, u, v) "
+                  f"{[float(x) for x in out_k[:, i]]}, plain "
+                  f"{[float(x) for x in out_p[:, i]]}")
+    if min(agree, agree_hits) < HIT_AGREE or rest:
+        raise AssertionError("K4 disagrees with its plain version")
+    return err, out_k, start.elapsed_time(end)
+
+
+def _slab_enter(lo, hi, o, iv, tmin, bt):
+    """The kernels' slab test, broadcast: boxes lo/hi (..., 3), rays o and
+    reciprocal directions iv (..., 3), windows tmin and best t (...)."""
+    import torch
+
+    t1, t2 = (lo - o) * iv, (hi - o) * iv
+    near = torch.minimum(t1, t2).amax(-1)
+    far = torch.maximum(t1, t2).amin(-1)
+    return (near <= far) & (far > tmin) & (near <= bt)
+
+
+def culled_tests_inst(tables, planes, n, best_t, block=1 << 22):
+    """Triangle tests K4's per-ray cull leaves when every box test compares
+    against the ray's final best t (instance world boxes, then the object
+    chunk boxes, then the run boxes, runs of padding rows excluded): the
+    least work a traversal that knew its answer would do. Returns (triangle
+    tests, instances entered, object chunks entered), summed over rays."""
+    import torch
+
+    from raytracerfacility_tpu_torch.ops.inst import _inv_dir, to_object
+
+    o = torch.stack(planes[0:3], 1)[:n]
+    d = torch.stack(planes[3:6], 1)[:n]
+    tmin, bt = planes[6][:n], best_t[:n]
+    boxes, ranges = tables["inst_box"], tables["inst_chunks"].to(torch.int64)
+    chunks, subs = tables["obj_chunks"], tables["sub_aabbs"]
+    chunk, sub = tables["chunk"], tables["sub"]
+    runs = chunk // sub
+    iv = _inv_dir(d)
+    ray, ins = [], []
+    step = max(1, block // max(n, 1))
+    for i0 in range(0, boxes.shape[0], step):
+        b = boxes[i0:i0 + step]
+        enter = _slab_enter(b[None, :, 0:3], b[None, :, 3:6], o[:, None],
+                            iv[:, None], tmin[:, None], bt[:, None])
+        r, k = torch.nonzero(enter, as_tuple=True)
+        ray.append(r)
+        ins.append(k + i0)
+    ray, ins = torch.cat(ray), torch.cat(ins)
+    tests = entered = 0
+    for c0 in torch.unique(ranges[ins, 0]).tolist():
+        sel = torch.nonzero(ranges[ins, 0] == c0)[:, 0]
+        nc = int(ranges[ins[sel[0]], 1])
+        cb = chunks[c0:c0 + nc]
+        step = max(1, block // nc)
+        for p0 in range(0, sel.shape[0], step):
+            ps = sel[p0:p0 + step]
+            oo, dd = to_object(tables["inst"][ins[ps]], o[ray[ps]], d[ray[ps]])
+            ii = _inv_dir(dd)
+            pt, pb = tmin[ray[ps]], bt[ray[ps]]
+            hit = _slab_enter(cb[None, :, 0:3], cb[None, :, 3:6], oo[:, None],
+                              ii[:, None], pt[:, None], pb[:, None])
+            q, c = torch.nonzero(hit, as_tuple=True)
+            entered += q.shape[0]
+            for q0 in range(0, q.shape[0], max(1, block // runs)):
+                qq, cc = q[q0:q0 + block // runs], c[q0:q0 + block // runs]
+                rb = subs[((c0 + cc) * runs)[:, None]
+                          + torch.arange(runs, device=subs.device)]
+                ok = _slab_enter(rb[..., 0:3], rb[..., 3:6], oo[qq, None],
+                                 ii[qq, None], pt[qq, None], pb[qq, None])
+                tests += int((ok & (rb[..., 0] <= rb[..., 3])).sum()) * sub
+    return tests, ray.shape[0], entered
+
+
+def _k4_bytes(tables, n):
+    """K4's tables read once, eight ray planes in and five out."""
+    return _nbytes(*(tables[k] for k in _INST_KEYS)) + 4 * 13 * n
+
+
+def _world_prims(scene, prim, iid):
+    """The denormalized bake's row of each K4 hit (prim, instance record),
+    -1 on a miss, for a scene whose instances each have a geometry of their
+    own: the bake then lays out its records' triangles in record order."""
+    import torch
+
+    counts, bases, first = [], [], {}
+    for inst in scene.instances.values():
+        geom = scene.geometries[inst.geometry_key]
+        tris = geom.mesh.num_triangles
+        if inst.geometry_key not in first:
+            first[inst.geometry_key] = sum(scene.geometries[k].mesh.num_triangles
+                                           for k in first)
+        subs = len(geom.instance_matrices) if geom.instance_matrices is not None else 1
+        counts += [tris] * subs
+        bases += [first[inst.geometry_key]] * subs
+    counts = torch.tensor(counts, device=prim.device)
+    offsets = torch.cumsum(counts, 0) - counts
+    bases = torch.tensor(bases, device=prim.device)
+    k = iid.clamp(min=0)
+    return torch.where(iid >= 0, offsets[k] + prim - bases[k], -1)
+
+
+def canopy_phase(device, totals):
+    """The config-6 canopy on K4: compile the shared tables on the card,
+    trace one frame of primary rays (counted), hold K4 against its plain
+    version on every ray and against K3 on the scene's world-space bake.
+    Returns (max |d| of t against the plain version, K4 ms, plain ms, bound
+    ms, bound by)."""
+    import torch
+
+    from raytracerfacility_tpu_torch.ops import brute, inst
+    from raytracerfacility_tpu_torch.scene.builder import compile_shared_instanced
+    from raytracerfacility_tpu_torch.scenes import canopy_scene
+
+    scene, cam, _ = canopy_scene(C6, C6)
+    t0 = time.perf_counter()
+    tables = compile_shared_instanced(scene, device)
+    torch.cuda.synchronize()
+    pack_s = time.perf_counter() - t0
+    o, d = _primary_rays(cam, C6, C6, device)
+    (res, iid), launches = counted(
+        lambda: inst.trace_closest_instanced(tables, o, d, INST_TMIN, INST_TMAX),
+        {"inst_trace_kernel": 1}, totals)
+    n = o.shape[0]
+    world_tris = sum(
+        g.mesh.num_triangles * (len(g.instance_matrices) if g.instance_matrices is not None else 1)
+        for g in scene.geometries.values())
+    print(f"phase 11: config-6 canopy, {tables['inst'].shape[0]} instance records, "
+          f"{tables['table'].shape[0]} object rows, {world_tris} world triangles; "
+          f"shared tables packed in {pack_s:.3f} s; {C6}x{C6} primary rays: "
+          f"{int(res.hit.sum())} hits on {len(torch.unique(iid[res.hit]))} "
+          f"instances, launches {launches}")
+    if not (bool(torch.isfinite(res.t).all()) and float(res.hit.float().mean()) > 0.1
+            and bool(((iid >= 0) == res.hit).all())):
+        raise AssertionError("the canopy trace is not finite, hit and labelled")
+    planes = brute._planes(o, d, INST_TMIN, INST_TMAX)[0]
+    err, out_k, plain_ms = check_k4(tables, planes, n)
+
+    # against K3 on the world-space bake: the two spaces round apart, so a
+    # ray that grazes an edge may take the neighbouring triangle or, on a
+    # silhouette, the surface behind. Gates: the hit flag agrees on > 99%
+    # of rays; t within rtol/atol 2e-3 wherever both take the same
+    # triangle; the rays on different triangles that leave that t window
+    # count with the hit flips against the same 1%
+    compiled = scene.build(device)
+    world = brute.trace_planes(compiled.pallas_tris, planes, n, False)
+    hit_w = world[1] >= 0
+    flips = hit_w != res.hit
+    agree = 1.0 - float(flips.float().mean())
+    both = hit_w & res.hit
+    same = both & (_world_prims(scene, res.prim.reshape(-1), iid.reshape(-1))
+                   == world[1].to(torch.int64))
+    dt = (out_k[0] - world[0]).abs()
+    over = both & (dt > WORLD_T_TOL + WORLD_T_TOL * world[0].abs())
+    print(f"  K4 vs K3 on the world-space bake ({compiled.pallas_tris[0].shape[0]} "
+          f"rows): hit agree {agree:.6f} ({int(flips.sum())} rays differ); "
+          f"{int(both.sum())} rays hit in both, {int(same.sum())} of them the "
+          f"same triangle (t max |d| {float(dt[same].max()):.3g}, "
+          f"{int((over & same).sum())} outside rtol/atol {WORLD_T_TOL}), "
+          f"{int((both & ~same).sum())} different triangles "
+          f"({int((over & ~same).sum())} outside)")
+    for i in torch.nonzero(over)[:6, 0].tolist():
+        print(f"    ray {i}: K4 (t, record, prim) ({float(out_k[0, i])}, "
+              f"{int(iid[i])}, {int(res.prim[i])}), K3 (t, world row) "
+              f"({float(world[0, i])}, {int(world[1, i])})")
+    if (agree <= WORLD_HIT_AGREE or bool((over & same).any())
+            or float((flips | over).float().mean()) >= 1.0 - WORLD_HIT_AGREE):
+        raise AssertionError("K4 disagrees with K3 on the world-space bake")
+    del compiled, world
+
+    ms, times = _median_ms(lambda: inst.trace_planes(tables, planes, n))
+    tests, pairs, chunks = culled_tests_inst(tables, planes, n, out_k[0])
+    b, by = bound(_k4_bytes(tables, n), tests, 0)
+    print(f"  K4 at {n} rays: median of {len(times)} {ms:.3f} ms "
+          f"({', '.join(f'{t:.3f}' for t in times)}), {n / ms / 1e3:.3f} Mrays/s, "
+          f"plain {plain_ms:.3f} ms; at the final best t {pairs} instances and "
+          f"{chunks} object chunks entered, {tests} triangle tests, bound "
+          f"{b:.4f} ms by {by}")
+    return err, ms, plain_ms, b, by
+
+
+def forest_phase(device, totals):
+    """The forest of scripts/bench_instanced.py on K4 at full width: pack
+    the shared tables, trace 512x512 primary rays (counted), hold K4
+    against its plain version on every 64th ray, time it and bound it.
+    Returns (max |d| of t against the plain version, K4 ms, plain ms on the
+    subset, bound ms, bound by, rays in the subset)."""
+    import numpy as np
+    import torch
+
+    from raytracerfacility_tpu_torch.ops import brute, inst
+    from raytracerfacility_tpu_torch.scenes import forest
+
+    geom, mats, *rays = forest(FOREST_INST, FOREST_TRIS)
+    torch.cuda.reset_peak_memory_stats(device)
+    held_mib = torch.cuda.memory_allocated(device) / 2**20  # earlier phases'
+    t0 = time.perf_counter()
+    tables = inst.pack_instanced_tables([geom], np.zeros(FOREST_INST, np.int32),
+                                        mats, chunk=512, sub=32, device=device)
+    torch.cuda.synchronize()
+    pack_s = time.perf_counter() - t0
+    o, d, tmin, tmax = (torch.from_numpy(x).to(device) for x in rays)
+    (res, iid), launches = counted(
+        lambda: inst.trace_closest_instanced(tables, o, d, tmin, tmax),
+        {"inst_trace_kernel": 1}, totals)
+    torch.cuda.synchronize()
+    peak_mib = torch.cuda.max_memory_allocated(device) / 2**20
+    n = o.shape[0]
+    print(f"phase 12: forest, {FOREST_INST} instances x {FOREST_TRIS} triangles = "
+          f"{FOREST_INST * FOREST_TRIS} world triangles, {tables['step_chunk'].shape[0]} "
+          f"steps; packed in {pack_s:.3f} s; object table "
+          f"{_nbytes(tables['table']) / 1e6:.1f} MB, all K4 tables "
+          f"{_nbytes(*(tables[k] for k in _INST_KEYS)) / 1e6:.1f} MB; peak device "
+          f"memory through the first trace {peak_mib:.1f} MiB, of which "
+          f"{peak_mib - held_mib:.1f} MiB the forest's (tables, rays, trace); {n} rays: "
+          f"{int(res.hit.sum())} hits on {len(torch.unique(iid[res.hit]))} "
+          f"instances, launches {launches}")
+    if not (bool(torch.isfinite(res.t).all()) and bool(res.hit.any())
+            and bool(((iid >= 0) == res.hit).all())):
+        raise AssertionError("the forest trace is not finite, hit and labelled")
+    planes = brute._planes(o, d, tmin, tmax)[0]
+    subset = [p[::FOREST_STRIDE].contiguous() for p in planes]
+    err, _, plain_ms = check_k4(tables, subset, subset[0].shape[0])
+    ms, times = _median_ms(lambda: inst.trace_planes(tables, planes, n))
+    tests, pairs, chunks = culled_tests_inst(tables, planes, n,
+                                             res.t.reshape(-1).contiguous())
+    b, by = bound(_k4_bytes(tables, n), tests, 0)
+    print(f"  K4 at {n} rays: median of {len(times)} {ms:.3f} ms "
+          f"({', '.join(f'{t:.3f}' for t in times)}), {n / ms / 1e3:.3f} Mrays/s, "
+          f"hit fraction {float(res.hit.float().mean()):.6f}; plain {plain_ms:.3f} ms "
+          f"on the {subset[0].shape[0]}-ray subset; at the final best t {pairs} "
+          f"instances and {chunks} object chunks entered, {tests} triangle "
+          f"tests, bound {b:.4f} ms by {by}")
+    return err, ms, plain_ms, b, by, subset[0].shape[0]
+
+
 def _family(name):
     """Kernel family of a device event, for the device-time breakdown."""
     if "seg_segment_kernel" in name:
@@ -400,6 +740,8 @@ def _family(name):
         return "K2 fused_path_kernel"
     if "brute_trace_kernel" in name:
         return "K3 brute_trace_kernel"
+    if "inst_trace_kernel" in name:
+        return "K4 inst_trace_kernel"
     if "Memcpy" in name or "Memset" in name:
         return "memcpy / memset"
     if "radix" in name.lower() or "cub::" in name:
@@ -868,6 +1210,10 @@ def main() -> int:
         if abs(outs[0][1] - outs[1][1]) > max(2, 1e-3 * outs[1][1]):
             raise AssertionError("card and CPU disagree on live rays")
 
+    # phases 11, 12: the instanced paths on K4
+    c6_err, c6_ms, c6_plain_ms, c6_bound, c6_by = canopy_phase(device, totals)
+    f_err, f_ms, f_plain_ms, f_bound, f_by, f_rays = forest_phase(device, totals)
+
     def row(name, source, replaces, err, ms, plain_ms, bnd, by):
         return {"name": name, "route": "cuda",
                 "source": f"raytracerfacility_tpu_torch/csrc/{source}",
@@ -891,6 +1237,12 @@ def main() -> int:
         row("brute_trace_kernel<true>", "brute.cu",
             "raytracerfacility_tpu/ops/pallas_brute.py:201", k3a_err,
             *k3["any"][:4]),
+        dict(row("inst_trace_kernel", "inst.cu",
+                 "raytracerfacility_tpu/ops/pallas_inst.py:248", max(c6_err, f_err),
+                 f_ms, f_plain_ms, f_bound, f_by),
+             shape=f"forest, {FOREST_INST} x {FOREST_TRIS} triangles, "
+                   f"{C6 * C6} rays; plain_ms on {f_rays} of them (every "
+                   f"{FOREST_STRIDE}th)"),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -10,6 +10,10 @@ trace+shade tables of ``ops/fused.py``. The bake runs in host numpy (the
 vertex-prep kernels of ref RayTracer.cu:1148-1192); the results move to
 the target device once.
 
+Scenes whose meshes would bake to more than :data:`MAX_WORLD_ROWS` world
+rows are refused before any bake; :func:`compile_shared_instanced` packs
+them into shared-geometry tables instead (``ops/inst.py``).
+
 Textures, BTF materials, vertex-color materials, subsurface, tessellated
 strands (``curve_mode="tessellate"``), skinning and the incremental
 rebuild cache are not ported yet and raise ``NotImplementedError``.
@@ -171,6 +175,35 @@ def _check_material(mat) -> None:
             f"material {mat.handle}: subsurface scattering is not ported")
 
 
+# The denormalized bake's ceiling in world triangle rows, the reference's
+# (builder.py:506-533, about 80 bytes a row across the geometry buffers and
+# the trace tables)
+MAX_WORLD_ROWS = 128_000_000
+
+
+def _check_ceiling(groups) -> None:
+    """Refuse, before any bake, a scene whose meshes bake to more than
+    :data:`MAX_WORLD_ROWS` world rows (each instance adds every triangle of
+    its geometry), naming the shared-geometry engine that holds it.
+    ``groups``: (geometry, members) pairs."""
+    rows = 0
+    for geom, members in groups:
+        if geom.mesh is None:
+            continue  # strands bake later; meshes dominate the scale
+        nsub = (len(geom.instance_matrices)
+                if geom.renderer_type == RendererType.INSTANCED
+                and geom.instance_matrices is not None else 1)
+        rows += geom.mesh.num_triangles * nsub * len(members)
+    if rows > MAX_WORLD_ROWS:
+        raise ValueError(
+            f"scene bakes to {rows:,} world triangle rows, over the "
+            f"denormalized-bake ceiling ({MAX_WORLD_ROWS:,} rows). For heavy "
+            "instancing use the shared-geometry engine: "
+            "scene.builder.compile_shared_instanced + "
+            "ops.inst.trace_closest_instanced stores O(unique triangles) and "
+            "a per-instance transform table.")
+
+
 def build_compiled_scene(scene, device) -> CompiledScene:
     """Compile the scene store onto ``device``. The primitive count pads
     to a multiple of 256 with degenerate, never-hit triangles."""
@@ -217,6 +250,7 @@ def build_compiled_scene(scene, device) -> CompiledScene:
         groups.setdefault((inst.geometry_key, geom.version),
                           (geom, []))[1].append((inst, slot))
 
+    _check_ceiling(groups.values())
     parts = []
     for geom, members in groups.values():
         if geom.renderer_type == RendererType.CURVE:
@@ -303,3 +337,55 @@ def build_compiled_scene(scene, device) -> CompiledScene:
     return dataclasses.replace(
         compiled, fused=pack_fused_tables(compiled, chunk=chunk),
         fused_chunk=chunk)
+
+
+def compile_shared_instanced(scene, device, chunk: int = 512, sub: int = 32) -> dict:
+    """Shared-geometry instanced trace tables of a scene store on
+    ``device``: the O(unique triangles) alternative to the denormalized
+    bake for heavily instanced scenes (ref builder.py:901-961; the
+    reference's shared BLAS and instance records, RayTracer.cu:1618-1715).
+
+    Every DEFAULT or INSTANCED mesh instance becomes one instance record
+    per sub-instance matrix (the member transform times the matrix); each
+    (geometry, version) is baked once in object space. Other geometry
+    (curves, skinned meshes) raises ``ValueError``. Returns the tables of
+    :func:`raytracerfacility_tpu_torch.ops.inst.pack_instanced_tables`
+    plus ``instance_material``, the (I,) int32 slot of each record's
+    material in the order of ``scene.materials``."""
+    from raytracerfacility_tpu_torch.ops.inst import pack_instanced_tables
+
+    geoms = []  # object-space (v0, e1, e2) per unique geometry
+    geom_index: dict = {}
+    instance_geom, matrices, inst_material = [], [], []
+    mat_slots = {k: i for i, k in enumerate(scene.materials)}
+    for handle, inst in scene.instances.items():
+        geom = scene.geometries.get(inst.geometry_key)
+        if geom is None or inst.material_key not in scene.materials:
+            continue
+        if geom.renderer_type not in (RendererType.DEFAULT, RendererType.INSTANCED):
+            raise ValueError(
+                f"shared instancing requires mesh geometry; instance {handle} "
+                f"has renderer_type={RendererType(geom.renderer_type).name}")
+        gkey = (inst.geometry_key, geom.version)
+        if gkey not in geom_index:
+            obj = _geometry_object_bake(geom)
+            if obj is None:
+                continue
+            geom_index[gkey] = len(geoms)
+            geoms.append((obj["v0"], obj["e1"], obj["e2"]))
+        if geom.renderer_type == RendererType.INSTANCED:
+            sub_mats = np.asarray(geom.instance_matrices, np.float32)
+        else:
+            sub_mats = np.eye(4, dtype=np.float32)[None]
+        for m in np.einsum("pq,sqr->spr",
+                           np.asarray(inst.global_transform, np.float32), sub_mats):
+            instance_geom.append(geom_index[gkey])
+            matrices.append(m)
+            inst_material.append(mat_slots[inst.material_key])
+    if not geoms:
+        raise ValueError("no mesh instances to compile")
+    tables = pack_instanced_tables(geoms, np.asarray(instance_geom, np.int32),
+                                   matrices, chunk=chunk, sub=sub, device=device)
+    tables["instance_material"] = torch.tensor(inst_material, dtype=torch.int32,
+                                               device=device)
+    return tables

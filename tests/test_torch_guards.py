@@ -21,8 +21,9 @@ from raytracerfacility_tpu_torch.enums import (
 )
 from raytracerfacility_tpu_torch.models import pathtracer as pt
 from raytracerfacility_tpu_torch.models.renderer import EnvironmentProperties
-from raytracerfacility_tpu_torch.ops import brute, fused, seg
+from raytracerfacility_tpu_torch.ops import brute, fused, inst, seg
 from raytracerfacility_tpu_torch.scene import MaterialProperties
+from raytracerfacility_tpu_torch.scene.builder import compile_shared_instanced
 from raytracerfacility_tpu_torch.scenes import bench_scene, strands_scene
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
@@ -41,6 +42,16 @@ for make in (bench_scene, lambda w, h: strands_scene(w, h, n_strands=40)):
             RenderConfig(width=8, height=8, bounces=2, lighting_type=lighting),
             init_frame(8, 8, "cpu"), 2)
         assert frame.color.shape == (8, 8, 4) and int(rays) > 0
+from raytracerfacility_tpu_torch.ops.inst import trace_closest_instanced
+from raytracerfacility_tpu_torch.scene.builder import compile_shared_instanced
+from raytracerfacility_tpu_torch.scene.procedural import build_canopy_scene
+import torch
+tables = compile_shared_instanced(build_canopy_scene(rows=2, cols=2, variants=2), "cpu")
+res, inst = trace_closest_instanced(
+    tables, torch.tensor([[0.0, 2.0, 2.0]]).expand(64, 3),
+    torch.nn.functional.normalize(torch.randn(64, 3) * 0.3 + torch.tensor([0.0, -1.0, -1.0]), dim=1),
+    1e-3, 100.0)
+assert int(res.hit.sum()) > 0 and bool(((inst >= 0) == res.hit).all())
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "raytracerfacility_tpu"))
 print("LOADED", bad)
@@ -86,6 +97,10 @@ def test_wrappers_do_not_fall_back_off_the_cpu():
     with pytest.raises(ValueError):
         brute.trace_planes(trace, [torch.zeros(64, device="meta")] * 8, 64,
                            any_hit=False)
+    tables = {k: v.to("meta") if torch.is_tensor(v) else v for k, v in
+              compile_shared_instanced(scene, "cpu").items()}
+    with pytest.raises(ValueError):
+        inst.trace_planes(tables, [torch.zeros(64, device="meta")] * 8, 64)
 
 
 @pytest.mark.parametrize("bad", ["chunk", "columns", "env", "offsets"])
@@ -108,6 +123,26 @@ def test_kernel_inputs_are_validated(bad):
     with pytest.raises(ValueError):
         fused.check_kernel_inputs(tables, env, chunk, rays, 13,
                                   torch.device("cpu"))
+
+
+@pytest.mark.parametrize("bad", ["chunk_range", "range_dtype", "box_rows"])
+def test_instanced_tables_are_validated(bad):
+    """K4 indexes its object chunks by each instance's chunk range and its
+    world boxes by instance: tables that would take it out of bounds never
+    launch."""
+    scene, _, _ = bench_scene(8, 8)
+    tables = compile_shared_instanced(scene, "cpu")
+    inst.check_tables(tables, torch.device("cpu"))
+    if bad == "chunk_range":
+        ranges = tables["inst_chunks"].clone()
+        ranges[-1, 1] += 1
+        tables["inst_chunks"] = ranges
+    elif bad == "range_dtype":
+        tables["inst_chunks"] = tables["inst_chunks"].to(torch.int64)
+    else:
+        tables["inst_box"] = tables["inst_box"][:-1].contiguous()
+    with pytest.raises(ValueError):
+        inst.check_tables(tables, torch.device("cpu"))
 
 
 def test_package_data_ships_kernel_sources():

@@ -12,6 +12,7 @@ so the gates bound the bulk tightly and the tails loosely.
 
 from __future__ import annotations
 
+import fcntl
 import os
 
 import numpy as np
@@ -20,6 +21,31 @@ import torch
 # the suite runs in several worker processes: one intra-op thread each
 # keeps the port's plain (CPU) kernels from oversubscribing the cores
 torch.set_num_threads(1)
+
+
+def _build_reference_native_library() -> None:
+    """Build the JAX package's host library once, whole, before any test.
+
+    ``raytracerfacility_tpu.native`` compiles it on first use with g++
+    writing straight to its final path, so a second worker that arrives
+    meanwhile sees a file newer than the source and loads it half written
+    ("file too short"). Every worker imports this module while it collects
+    (the test_torch_*.py modules import it at the top) and pytest-xdist
+    starts no test until all have collected, so building here under an
+    exclusive lock leaves a whole library that every later build call finds
+    up to date."""
+    from raytracerfacility_tpu import native
+
+    os.makedirs(native._BUILD_DIR, exist_ok=True)
+    with open(os.path.join(native._BUILD_DIR, "build.lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            native.get_lib()
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
+
+
+_build_reference_native_library()
 
 
 def reference_bench(width: int, height: int):
