@@ -22,6 +22,14 @@ its kernels:
   ``compile_shared_instanced`` / ``pack_instanced_tables`` and
   ``trace_closest_instanced``; the canopy also against K3 on its
   world-space bake.
+- the LBVH route (K5): config 6's 1,038,338-triangle bake compiled with
+  ``build_bvh=True`` (its BVH built on the card and held bit for bit to
+  the CPU build) at 512x512, 2 bounces, 2 pooled frames, under Scene and
+  SingleLightSource lighting, on the wavefront engine's LBVH walker
+  (``bvh_trace_kernel<false>`` and ``<true>``); the same frames on the
+  segmented engine (K1); config 7's strands on the walker; K5 against its
+  plain version on every ray of the captured launches and against K3 on
+  the same rays.
 
 It times the kernels and the paths, splits the device time of one 1080p
 call and of one config-7 call by kernel family (``torch.profiler``, CUDA
@@ -523,7 +531,8 @@ def culled_tests_inst(tables, planes, n, best_t, block=1 << 22):
     tests, instances entered, object chunks entered), summed over rays."""
     import torch
 
-    from raytracerfacility_tpu_torch.ops.inst import _inv_dir, to_object
+    from raytracerfacility_tpu_torch.ops.inst import to_object
+    from raytracerfacility_tpu_torch.ops.math3d import inv_dir
 
     o = torch.stack(planes[0:3], 1)[:n]
     d = torch.stack(planes[3:6], 1)[:n]
@@ -532,7 +541,7 @@ def culled_tests_inst(tables, planes, n, best_t, block=1 << 22):
     chunks, subs = tables["obj_chunks"], tables["sub_aabbs"]
     chunk, sub = tables["chunk"], tables["sub"]
     runs = chunk // sub
-    iv = _inv_dir(d)
+    iv = inv_dir(d)
     ray, ins = [], []
     step = max(1, block // max(n, 1))
     for i0 in range(0, boxes.shape[0], step):
@@ -552,7 +561,7 @@ def culled_tests_inst(tables, planes, n, best_t, block=1 << 22):
         for p0 in range(0, sel.shape[0], step):
             ps = sel[p0:p0 + step]
             oo, dd = to_object(tables["inst"][ins[ps]], o[ray[ps]], d[ray[ps]])
-            ii = _inv_dir(dd)
+            ii = inv_dir(dd)
             pt, pb = tmin[ray[ps]], bt[ray[ps]]
             hit = _slab_enter(cb[None, :, 0:3], cb[None, :, 3:6], oo[:, None],
                               ii[:, None], pt[:, None], pb[:, None])
@@ -730,6 +739,327 @@ def forest_phase(device, totals):
     return err, ms, plain_ms, b, by, subset[0].shape[0]
 
 
+# The LBVH route (K5): BASELINE config 6's 1,038,338-triangle bake at
+# 512x512, 2 bounces, 1 spp and 2 frames pooled into one 524,288-ray pool
+# (bench.py:272-294), compiled with build_bvh=True, under Scene lighting
+# and SingleLightSource; config 7's strands at 2 pooled frames
+C6_BOUNCES, C6_FRAMES = 2, 2
+C7_BVH_FRAMES = 2
+# K5 against K3 on the same rays: the hit flag agrees on > 99.9% of rays;
+# where both take the same primitive t agrees within these (relative past
+# |t| = 1), triangles and curves; rays on different primitives outside
+# that window count with the hit flips
+K3_T_TOL_TRI, K3_T_TOL_CURVE = 1e-6, 1e-5
+
+
+def capture_k5(render):
+    """Run ``render()`` with K5's wrapper recording the inputs of every
+    launch: a list of (any_hit, planes, n)."""
+    from raytracerfacility_tpu_torch.ops import traverse
+
+    seen = []
+    real = traverse.trace_planes
+
+    def spy(bvh, planes, n, any_hit):
+        seen.append((bool(any_hit), [p[:n].clone() for p in planes], n))
+        return real(bvh, planes, n, any_hit)
+
+    traverse.trace_planes = spy
+    try:
+        render()
+    finally:
+        traverse.trace_planes = real
+    return seen
+
+
+def _spread(x):
+    """mean, p99, max of a per-ray count."""
+    x = x.double()
+    return (f"mean {float(x.mean()):.2f}, p99 {_quantile(x, 0.99):.0f}, "
+            f"max {float(x.max()):.0f}")
+
+
+def check_k5(bvh, planes, n, any_hit, what):
+    """K5 against its plain version on all ``n`` rays of a captured
+    launch: the decision (prim, hence hit) equal on >= 99.9% of the rays
+    with a live window and of the rays that hit in either, and t, u, v
+    equal wherever the decisions are. Prints each ray's node visits and
+    row tests and the rays at the step cap. Returns (max |d| of t over
+    rays both hit, or of the flag for any-hit; kernel outputs; plain ms:
+    one call, CUDA events)."""
+    import torch
+
+    from raytracerfacility_tpu_torch.ops import brute, traverse
+
+    out_k, prim_k, stats_k = traverse.trace_planes(bvh, planes, n, any_hit, stats=True)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out_p, prim_p, stats_p = traverse._walk_plain(bvh, torch.stack(planes), n, any_hit,
+                                                  stats=True)
+    end.record()
+    end.synchronize()
+    same = prim_k == prim_p
+    hit_k, hit_p = prim_k >= 0, prim_p >= 0
+    either, both = hit_k | hit_p, hit_k & hit_p
+    lanes = planes[7] != brute.DEAD
+    agree = float(same[lanes].float().mean())
+    agree_hits = float(same[either].float().mean()) if bool(either.any()) else 1.0
+    rest = int(((out_k != out_p).any(0) & same).sum())
+    stats_same = int((stats_k == stats_p).all(0).sum())
+    if any_hit:
+        err = float((hit_k != hit_p).float().max())
+    else:
+        err = float((out_k[0][both] - out_p[0][both]).abs().max()) if bool(both.any()) else 0.0
+    diff = torch.nonzero(~same & lanes)[:, 0]
+    capped = int((stats_k[0] >= traverse.MAX_STEPS).sum())
+    print(f"  K5 {'any-hit' if any_hit else 'closest'} vs plain, {what}: {n} rays, "
+          f"{int(lanes.sum())} with a live window, {int(hit_k.sum())} hits (plain "
+          f"{int(hit_p.sum())}); prim equal on {agree:.6f} of them and on "
+          f"{agree_hits:.6f} of the {int(either.sum())} that hit in either "
+          f"({diff.numel()} differ); t, u, v differ on {rest} rays with equal "
+          f"decisions; node visits and row tests equal on {stats_same}; "
+          f"{'flag' if any_hit else 't'} max |d| {err:.3g}")
+    print(f"    per ray: node visits {_spread(stats_k[0][lanes])}; row tests "
+          f"{_spread(stats_k[1][lanes])}; {capped} rays at the "
+          f"{traverse.MAX_STEPS}-step cap; plain {start.elapsed_time(end):.1f} ms")
+    for j in range(min(4, diff.numel())):
+        i = int(diff[j])
+        print(f"    ray {i}: kernel (t, u, v, prim) {[float(x) for x in out_k[:, i]]}, "
+              f"{int(prim_k[i])}; plain {[float(x) for x in out_p[:, i]]}, "
+              f"{int(prim_p[i])}")
+    if min(agree, agree_hits) < HIT_AGREE or rest:
+        raise AssertionError("K5 disagrees with its plain version")
+    return err, (out_k, prim_k, stats_k), start.elapsed_time(end)
+
+
+def k5_bound(bvh, planes, n, any_hit, result):
+    """(bound ms, bound by, row tests, node visits, bytes) of one K5 launch,
+    from the work this run's rays need: the plain walk again, a closest-hit
+    ray with tmax at its final best t (so no box test sees a larger t), a
+    lit shadow ray to its tmax, an occluded one only its accepted row.
+    Bytes: each distinct node and row those walks load, read once, eight
+    ray planes in and t, u, v, prim out; operations: their row tests.
+    Every row is a triangle on config 6."""
+    import torch
+
+    from raytracerfacility_tpu_torch.ops import brute, traverse
+
+    out, prim = result[0], result[1]
+    rays = torch.stack(planes)
+    occluded = prim >= 0
+    rays[7] = torch.where(occluded, brute.DEAD, rays[7]) if any_hit else out[0]
+    touched = (torch.zeros(bvh.num_nodes, dtype=torch.bool, device=rays.device),
+               torch.zeros(bvh.tris.shape[0], dtype=torch.bool, device=rays.device))
+    _, _, s = traverse._walk_plain(bvh, rays, n, any_hit, stats=True, touched=touched)
+    tests, visits = int(s[1].sum()), int(s[0].sum())
+    if any_hit:
+        tests += int(occluded.sum())
+        touched[1][torch.isin(bvh.tri_prim, prim[occluded])] = True
+    nbytes = (int(touched[0].sum()) * bvh.nodes.shape[1] * 4
+              + int(touched[1].sum()) * bvh.tris.shape[1] * 4 + 4 * (8 + 4) * n)
+    return bound(nbytes, tests, 0) + (tests, visits, nbytes)
+
+
+def k5_vs_k3(bvh, tables, planes, n, what, kinds):
+    """K5 and K3 closest hit on the same rays: hit flags agree on > 99.9%
+    of rays; t within the K3_T_TOL_* window where both take the same
+    primitive; rays on different primitives outside it count with the
+    flips. Prints both kernels' median times."""
+    import torch
+
+    from raytracerfacility_tpu_torch.ops import brute, traverse
+
+    out5, prim5, _ = traverse.trace_planes(bvh, planes, n, False)
+    out3 = brute.trace_planes(tables, planes, n, False)
+    prim3 = out3[1].to(torch.int32)
+    hit5, hit3 = prim5 >= 0, prim3 >= 0
+    flips = hit5 != hit3
+    both = hit5 & hit3
+    same = both & (prim5 == prim3)
+    tol = torch.where(kinds[prim5.clamp(min=0).long()] == 1, K3_T_TOL_CURVE,
+                      K3_T_TOL_TRI)
+    dt = (out5[0] - out3[0]).abs()
+    over = both & (dt > tol * torch.clamp(out3[0].abs(), min=1.0))
+    ms5, _ = _median_ms(lambda: traverse.trace_planes(bvh, planes, n, False))
+    ms3, _ = _median_ms(lambda: brute.trace_planes(tables, planes, n, False))
+    bad = float((flips | (over & ~same)).float().mean())
+    print(f"  K5 vs K3, {what}: {n} rays, hit agree {1.0 - float(flips.float().mean()):.6f} "
+          f"({int(flips.sum())} differ); {int(both.sum())} hit in both, "
+          f"{int(same.sum())} on the same primitive (t max |d| "
+          f"{float(dt[same].max()) if bool(same.any()) else 0.0:.3g}, "
+          f"{int((over & same).sum())} outside the window), "
+          f"{int((both & ~same).sum())} on different ones "
+          f"({int((over & ~same).sum())} outside); K5 median {ms5:.3f} ms, "
+          f"K3 median {ms3:.3f} ms")
+    if bool((over & same).any()) or bad >= 1.0 - HIT_AGREE:
+        raise AssertionError(f"K5 disagrees with K3 on {what}")
+
+
+def lbvh_phase(device, totals):
+    """BASELINE config 6 on the LBVH route: the BVH built on the card
+    (against the same build on the CPU), the walker's counted renders
+    under Scene and SLS lighting, the segmented engine (K1) on the same
+    frames, K5 against its plain version on every ray of the captured
+    launches and against K3 on the same rays, and config 7's strands on
+    the walker. Returns {kernel name: (max |d|, ms, plain ms, bound ms,
+    bound by)}."""
+    import torch
+
+    from raytracerfacility_tpu_torch.enums import EnvironmentalLightingType
+    from raytracerfacility_tpu_torch.models.pathtracer import (
+        RenderConfig,
+        init_frame,
+        render_frames_counted,
+    )
+    from raytracerfacility_tpu_torch.ops import traverse
+    from raytracerfacility_tpu_torch.ops.bvh import build_bvh
+    from raytracerfacility_tpu_torch.scenes import canopy_scene, strands_scene
+
+    sls = EnvironmentalLightingType.SINGLE_LIGHT_SOURCE
+    scene, cam, env = canopy_scene(C6, C6)
+    t0 = time.perf_counter()
+    packed = scene.build(device)
+    torch.cuda.synchronize()
+    packed_s = time.perf_counter() - t0
+    g = packed.geometry
+
+    def lbvh(dev):
+        return build_bvh(g.v0.to(dev), g.e1.to(dev), g.e2.to(dev), leaf_size=4,
+                         instance=g.instance.to(dev), kind=g.kind.to(dev),
+                         has_curves=g.has_curves)
+
+    secs = []
+    for _ in range(2):  # cold, then warm
+        t0 = time.perf_counter()
+        card = lbvh(device)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    host = lbvh("cpu")
+    cpu_s = time.perf_counter() - t0
+    same = all(torch.equal(getattr(card, k).cpu().view(torch.int32),
+                           getattr(host, k).view(torch.int32)) for k in ("nodes", "tris"))
+    same = same and torch.equal(card.tri_prim.cpu(), host.tri_prim)
+    table_mb = _nbytes(card.nodes, card.tris) / 1e6
+    print(f"phase 13: config-6 LBVH, {g.v0.shape[0]} primitives (bake and packed "
+          f"tables {packed_s:.3f} s): built on the card in {secs[0]:.3f} s cold, "
+          f"{secs[1]:.3f} s warm; on the CPU {cpu_s:.3f} s; {card.num_nodes} nodes, "
+          f"nodes {_nbytes(card.nodes) / 1e6:.1f} MB + rows {_nbytes(card.tris) / 1e6:.1f} "
+          f"MB = {table_mb:.1f} MB; card and CPU builds bit-identical: {same}")
+    if not same:
+        raise AssertionError("the card's LBVH differs from the CPU's")
+    del host, card
+    t0 = time.perf_counter()
+    walker = scene.build(device, build_bvh=True)
+    torch.cuda.synchronize()
+    print(f"  compiled with build_bvh=True in {time.perf_counter() - t0:.3f} s: "
+          f"pallas_tris {walker.pallas_tris}, fused {walker.fused}")
+    if walker.bvh is None or walker.pallas_tris is not None or walker.fused is not None:
+        raise AssertionError("build_bvh=True must compile the BVH alone")
+
+    cam_s, env_s, sls_s = cam.state(device), env.state(device), _sls_env().state(device)
+    cfg = RenderConfig(width=C6, height=C6, bounces=C6_BOUNCES)
+    sls_cfg = RenderConfig(width=C6, height=C6, bounces=C6_BOUNCES, lighting_type=sls)
+
+    def render(compiled, config=cfg, env_state=env_s):
+        return render_frames_counted(compiled, cam_s, env_state, config,
+                                     init_frame(C6, C6, device), C6_FRAMES)
+
+    renders = {
+        "walker": (lambda: render(walker), {"bvh_trace_kernel<false>": None}),
+        "walker SLS": (lambda: render(walker, sls_cfg, sls_s),
+                       {"bvh_trace_kernel<false>": 1, "bvh_trace_kernel<true>": 1}),
+        "K1": (lambda: render(packed), {"seg_segment_kernel": None}),
+    }
+    frames, medians = {}, {}
+    for name, (fn, expect) in renders.items():
+        (frame, rays), launches = counted(fn, expect, totals)
+        live = sum(launches.values())
+        if live > C6_BOUNCES + 1 + (name == "walker SLS"):
+            raise AssertionError(f"{name}: {launches} launches for "
+                                 f"{C6_BOUNCES + 1} segments")
+        torch.cuda.reset_peak_memory_stats(device)
+        med, walls, rays2 = median_calls(lambda: fn()[1])
+        peak = torch.cuda.max_memory_allocated(device) / 2**20
+        frames[name], medians[name] = (frame, int(rays)), med
+        print(f"phase 14: config 6 {name}, {C6}x{C6} {C6_BOUNCES} bounces "
+              f"{C6_FRAMES} pooled frames: {int(rays)} live rays, launches "
+              f"{launches}; warm runs {', '.join(f'{w:.4f}' for w in walls)} s, "
+              f"median {med:.4f} s: {C6_FRAMES / med:.3f} frames/s, "
+              f"{rays2 / med / 1e6:.3f} Mrays/s; peak device memory {peak:.1f} MiB")
+        if not (bool(torch.isfinite(frame.color).all())
+                and float(frame.color[..., :3].std()) > 0.01
+                and frame.frame_id == C6_FRAMES and int(rays) >= C6 * C6 * C6_FRAMES):
+            raise AssertionError(f"the config-6 {name} frame is not finite, "
+                                 "varied and counted")
+    (fw, rw), (fk, rk) = frames["walker"], frames["K1"]
+    _check_color(fw.color, fk.color, "config 6 walker vs K1 colour")
+    for key in ("normal", "albedo"):
+        q = _check_aov(getattr(fw, key), getattr(fk, key), f"config 6 {key}")
+        print(f"  {key}: |d| p99.9 {q:.3g}")
+    print(f"  live rays walker {rw}, K1 {rk}")
+    if abs(rw - rk) > max(2, 1e-3 * rk):
+        raise AssertionError("the walker and K1 disagree on live rays")
+    wall_ms, busy_ms, _, fam = profile_call(lambda: render(walker))
+    print_profile("config-6 walker call", wall_ms, busy_ms, fam, medians["walker"])
+
+    # phase 15: K5 against its plain version at the path's shapes
+    closest = [c for c in capture_k5(lambda: render(walker)) if not c[0]]
+    shadow = [c for c in capture_k5(lambda: render(walker, sls_cfg, sls_s)) if c[0]]
+    print("phase 15: K5 vs plain on every ray of the captured launches")
+    err_c, res0, plain_c = check_k5(walker.bvh, closest[0][1], closest[0][2], False,
+                                    "config 6 segment 0")
+    err_1, _, _ = check_k5(walker.bvh, closest[1][1], closest[1][2], False,
+                           "config 6 segment 1")
+    err_a, res_a, plain_a = check_k5(walker.bvh, shadow[0][1], shadow[0][2], True,
+                                     "config 6 SLS shadow rays")
+    c7_scene, c7_cam, c7_env = strands_scene(C7, C7)
+    c7_walker = c7_scene.build(device, build_bvh=True)
+    c7_cfg = RenderConfig(width=C7, height=C7, bounces=C7_BOUNCES)
+
+    def render_c7():
+        return render_frames_counted(c7_walker, c7_cam.state(device),
+                                     c7_env.state(device), c7_cfg,
+                                     init_frame(C7, C7, device), C7_BVH_FRAMES)
+
+    (c7_frame, c7_rays), launches = counted(
+        render_c7, {"bvh_trace_kernel<false>": None}, totals)
+    print(f"  config 7 on the walker, {c7_walker.bvh.num_nodes} nodes, {C7}x{C7} "
+          f"{C7_BOUNCES} bounces {C7_BVH_FRAMES} pooled frames: {int(c7_rays)} live "
+          f"rays, launches {launches}")
+    if not (bool(torch.isfinite(c7_frame.color).all())
+            and float(c7_frame.color[..., :3].std()) > 0.01):
+        raise AssertionError("the config-7 walker frame is not finite and varied")
+    c7_first = [c for c in capture_k5(render_c7) if not c[0]][0]
+    err_7, _, _ = check_k5(c7_walker.bvh, c7_first[1], c7_first[2], False,
+                           "config 7 segment 0")
+
+    # phase 16: K5 against K3 on the same rays, and K5's bounds
+    print("phase 16: K5 vs K3 on the same rays")
+    k5_vs_k3(walker.bvh, packed.pallas_tris, closest[0][1], closest[0][2],
+             "config 6 segment 0", walker.geometry.kind)
+    c7_packed = c7_scene.build(device)
+    k5_vs_k3(c7_walker.bvh, c7_packed.pallas_tris, c7_first[1], c7_first[2],
+             "config 7 segment 0", c7_walker.geometry.kind)
+    rows = {}
+    for name, (planes, n), res, any_hit, err, plain_ms in (
+            ("bvh_trace_kernel<false>", closest[0][1:], res0, False,
+             max(err_c, err_1, err_7), plain_c),
+            ("bvh_trace_kernel<true>", shadow[0][1:], res_a, True, err_a, plain_a)):
+        ms, times = _median_ms(lambda: traverse.trace_planes(walker.bvh, planes, n,
+                                                             any_hit))
+        b, by, tests, visits, nbytes = k5_bound(walker.bvh, planes, n, any_hit, res)
+        print(f"  {name} at {n} rays: median of {len(times)} {ms:.3f} ms "
+              f"({', '.join(f'{t:.3f}' for t in times)}), {n / ms / 1e3:.3f} Mrays/s, "
+              f"plain {plain_ms:.1f} ms; {visits} node visits and {tests} row tests at "
+              f"the final best t (actual: {int(res[2][0].sum())} and "
+              f"{int(res[2][1].sum())}), {nbytes / 1e6:.1f} MB of distinct nodes, "
+              f"rows and ray planes; bound {b:.4f} ms by {by}")
+        rows[name] = (err, ms, plain_ms, b, by)
+    return rows
+
+
 def _family(name):
     """Kernel family of a device event, for the device-time breakdown."""
     if "seg_segment_kernel" in name:
@@ -742,6 +1072,8 @@ def _family(name):
         return "K3 brute_trace_kernel"
     if "inst_trace_kernel" in name:
         return "K4 inst_trace_kernel"
+    if "bvh_trace_kernel" in name:
+        return "K5 bvh_trace_kernel"
     if "Memcpy" in name or "Memset" in name:
         return "memcpy / memset"
     if "radix" in name.lower() or "cub::" in name:
@@ -1213,6 +1545,8 @@ def main() -> int:
     # phases 11, 12: the instanced paths on K4
     c6_err, c6_ms, c6_plain_ms, c6_bound, c6_by = canopy_phase(device, totals)
     f_err, f_ms, f_plain_ms, f_bound, f_by, f_rays = forest_phase(device, totals)
+    # phases 13-16: config 6 (and config 7) on the LBVH walker, K5
+    k5 = lbvh_phase(device, totals)
 
     def row(name, source, replaces, err, ms, plain_ms, bnd, by):
         return {"name": name, "route": "cuda",
@@ -1243,6 +1577,14 @@ def main() -> int:
              shape=f"forest, {FOREST_INST} x {FOREST_TRIS} triangles, "
                    f"{C6 * C6} rays; plain_ms on {f_rays} of them (every "
                    f"{FOREST_STRIDE}th)"),
+        dict(row("bvh_trace_kernel<false>", "bvh.cu",
+                 "raytracerfacility_tpu/ops/pallas_trace.py:61",
+                 *k5["bvh_trace_kernel<false>"]),
+             shape=f"config 6 segment 0, {C6 * C6 * C6_FRAMES} rays"),
+        dict(row("bvh_trace_kernel<true>", "bvh.cu",
+                 "raytracerfacility_tpu/ops/pallas_trace.py:61",
+                 *k5["bvh_trace_kernel<true>"]),
+             shape=f"config 6 SLS shadow rays, {C6 * C6 * C6_FRAMES} lanes"),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -38,63 +38,6 @@ struct TraceTable {
   int nchunks, chunk, sub;
 };
 
-// Sphere-swept segment test, term for term pallas_brute.py:311-368 (and
-// ops/curve.py::intersect_round_cone): p0 = v0, axis = e1, r0 = e2.x,
-// dr = e2.y. Curve pad rows carry r0 = -1 and never accept.
-__device__ __forceinline__ bool curve_test(const float* row, float ox, float oy,
-                                           float oz, float dx, float dy,
-                                           float dz, float tmin, float& t,
-                                           float& u) {
-  const float e1x = row[3], e1y = row[4], e1z = row[5];
-  const float r0 = row[6];
-  const float dr = row[7];
-  const float rr = -dr;
-  const float oax = ox - row[0];
-  const float oay = oy - row[1];
-  const float oaz = oz - row[2];
-  const float m0 = e1x * e1x + e1y * e1y + e1z * e1z;
-  const float m1 = oax * e1x + oay * e1y + oaz * e1z;
-  const float m2 = dx * e1x + dy * e1y + dz * e1z;
-  const float m3 = dx * oax + dy * oay + dz * oaz;
-  const float m5 = oax * oax + oay * oay + oaz * oaz;
-  const float d2 = m0 - rr * rr;
-  const float k2 = d2 - m2 * m2;
-  const float k1 = d2 * m3 - m1 * m2 + m2 * rr * r0;
-  const float k0 = d2 * m5 - m1 * m1 + 2.0f * m1 * rr * r0 - m0 * r0 * r0;
-  const float h = k1 * k1 - k0 * k2;
-  const bool k2_ok = fabsf(k2) > kDetEps;
-  const float safe_k2 = k2_ok ? k2 : 1.0f;
-  const float t_body = (-sqrtf(fmaxf(h, 0.0f)) - k1) / safe_k2;
-  const float y = m1 - r0 * rr + t_body * m2;
-  const bool body_ok = h >= 0.0f && k2_ok && y > 0.0f && y < d2 && t_body > tmin;
-  // sphere cap at p0
-  const float disc0 = m3 * m3 - m5 + r0 * r0;
-  const float t_cap0 = -m3 - sqrtf(fmaxf(disc0, 0.0f));
-  const float y0 = m1 - r0 * rr + t_cap0 * m2;
-  const bool cap0_ok = disc0 >= 0.0f && y0 <= 0.0f && t_cap0 > tmin;
-  // sphere cap at p1
-  const float r1 = r0 + dr;
-  const float obx = oax - e1x;
-  const float oby = oay - e1y;
-  const float obz = oaz - e1z;
-  const float m3b = dx * obx + dy * oby + dz * obz;
-  const float m5b = obx * obx + oby * oby + obz * obz;
-  const float disc1 = m3b * m3b - m5b + r1 * r1;
-  const float t_cap1 = -m3b - sqrtf(fmaxf(disc1, 0.0f));
-  const float y1 = m1 - r0 * rr + t_cap1 * m2;
-  const bool cap1_ok = disc1 >= 0.0f && y1 >= d2 && t_cap1 > tmin;
-  const float big = 3.4e38f;
-  const float tb = body_ok ? t_body : big;
-  const float t0c = cap0_ok ? t_cap0 : big;
-  const float t1c = cap1_ok ? t_cap1 : big;
-  t = fminf(fminf(tb, t0c), t1c);
-  const float safe_d2 = fabsf(d2) > kDetEps ? d2 : 1.0f;
-  const float u_body =
-      fminf(fmaxf((m1 - r0 * rr + t * m2) / safe_d2, 0.0f), 1.0f);
-  u = t == t0c ? 0.0f : (t == t1c ? 1.0f : u_body);
-  return (body_ok || cap0_ok || cap1_ok) && r0 >= 0.0f;
-}
-
 // One ray's sweep over the table. Closest hit keeps the lexicographic
 // (t, id) minimum in (tmin, tmax); any-hit returns at the first accept
 // with t = kDead, as the TPU kernel poisons its best t.
@@ -116,7 +59,8 @@ __device__ __forceinline__ void sweep(const TraceTable& s, float ox, float oy,
       for (int k = 0; k < s.sub; ++k, row += kBruteCols) {
         float t, u, v = 0.0f;
         const bool ok =
-            curves ? curve_test(row, ox, oy, oz, dx, dy, dz, tmin, t, u)
+            curves ? curve_test(row, ox, oy, oz, dx, dy, dz, tmin, t, u) &&
+                         row[6] >= 0.0f  // curve pad rows carry r0 = -1
                    : tri_test(row, ox, oy, oz, dx, dy, dz, tmin, t, u, v);
         const float jf = row[9];
         if (ok && (t < bt || (t == bt && jf < bid))) {

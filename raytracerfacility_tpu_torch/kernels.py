@@ -31,7 +31,8 @@ import time
 _CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 _COMMON = "path_common.cuh"
 # library name -> source file
-SOURCES = {"path": "path.cu", "brute": "brute.cu", "inst": "inst.cu"}
+SOURCES = {"path": "path.cu", "brute": "brute.cu", "inst": "inst.cu",
+           "bvh": "bvh.cu"}
 BUILD_DIR = pathlib.Path(__file__).resolve().parent.parent / "build" / "rtf_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -40,7 +41,8 @@ THREADS = 128
 
 LAUNCHES = {"seg_segment_kernel": 0, "fused_path_kernel": 0,
             "fused_sls_kernel": 0, "brute_trace_kernel<false>": 0,
-            "brute_trace_kernel<true>": 0, "inst_trace_kernel": 0}
+            "brute_trace_kernel<true>": 0, "inst_trace_kernel": 0,
+            "bvh_trace_kernel<false>": 0, "bvh_trace_kernel<true>": 0}
 
 _libs: dict = {}
 
@@ -110,6 +112,7 @@ _ARGTYPES = {
              "rtf_fused_sls": (9, 4)},
     "brute": {"rtf_brute_trace": (12, 5)},
     "inst": {"rtf_inst_trace": (15, 4)},
+    "bvh": {"rtf_bvh_trace": (13, 4)},
 }
 
 

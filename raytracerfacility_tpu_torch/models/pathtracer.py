@@ -15,9 +15,12 @@ Camera pools of scenes with packed path tables run on the path engines:
 Scene lighting on the segmented engine (``ops/seg.py``, kernel K1) for
 pools of 2^19 rays and more and on the whole-path engine (``ops/fused.py``,
 K2) below that; SingleLightSource lighting always on K2-SLS. Every other
-render (curves, or spp > 1 without ``samples_in_lanes``) runs the
-wavefront engine: trace on K3 (``ops/brute.py``), shade in torch ops, one
-segment at a time. Not ported yet, and refused with
+render (curves, spp > 1 without ``samples_in_lanes``, or a scene built
+with ``build_bvh=True``, which has no path tables) runs the wavefront
+engine: trace on K3 (``ops/brute.py``) when the scene has its packed
+table, else on the LBVH walker K5 (``ops/traverse.py``), the reference's
+order (pathtracer.py:114-157); shade in torch ops, one segment at a time.
+Not ported yet, and refused with
 ``NotImplementedError``: Skydome lighting, cubemap environments, alpha
 testing, BTF and subsurface.
 
@@ -43,7 +46,7 @@ from raytracerfacility_tpu_torch.ops.brute import (
     TraceResult,
     trace_planes,
 )
-from raytracerfacility_tpu_torch.ops import brute
+from raytracerfacility_tpu_torch.ops import brute, traverse
 from raytracerfacility_tpu_torch.ops.camera import CameraState, generate_camera_rays
 from raytracerfacility_tpu_torch.ops.environment import (
     EnvironmentState,
@@ -152,10 +155,12 @@ def init_frame(width: int, height: int, device) -> FrameBuffers:
 
 
 def trace_any(scene: CompiledScene, origin, direction, tmin, tmax) -> torch.Tensor:
-    """Occlusion query on K3's packed table (ref pathtracer.py:147-157; the
-    reference's LBVH route is not ported). Closest hits go to K3 through
-    :func:`_trace_state`, or ``ops/brute.py::trace_closest``."""
-    return brute.trace_any(scene.pallas_tris, origin, direction, tmin, tmax)
+    """Occlusion query on K3's packed table when the scene has it, else on
+    the LBVH (ref pathtracer.py:147-157). Closest hits take the same
+    order in :func:`_trace_state`."""
+    if scene.pallas_tris is not None:
+        return brute.trace_any(scene.pallas_tris, origin, direction, tmin, tmax)
+    return traverse.trace_any_bvh(scene.bvh, origin, direction, tmin, tmax)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -186,12 +191,26 @@ def init_path_state(origin, direction, rng, tmin) -> PathState:
 
 
 def _trace_state(scene, st, n: int, tmax) -> TraceResult:
-    """K3 closest hit of the first ``n`` rays of the state planes, read in
-    place, with tmax ``tmax`` (n,)."""
-    out = trace_planes(scene.pallas_tris,
-                       [st[k] for k in range(OX, DZ + 1)] + [st[TMIN], tmax],
-                       n, any_hit=False)
-    return TraceResult(t=out[0], prim=out[1].to(torch.int64), u=out[2], v=out[3])
+    """Closest hit of the first ``n`` rays of the state planes, read in
+    place, with tmax ``tmax`` (n,): on K3 when the scene has its packed
+    table, else on the LBVH walker K5 (ref pathtracer.py:114-145)."""
+    planes = [st[k] for k in range(OX, DZ + 1)] + [st[TMIN], tmax]
+    if scene.pallas_tris is not None:
+        out = trace_planes(scene.pallas_tris, planes, n, any_hit=False)
+        return TraceResult(t=out[0], prim=out[1].to(torch.int64), u=out[2],
+                           v=out[3])
+    tuv, prim, _ = traverse.trace_planes(scene.bvh, planes, n, any_hit=False)
+    return TraceResult(t=tuv[0], prim=prim.to(torch.int64), u=tuv[1], v=tuv[2])
+
+
+def _state_bounds(scene):
+    """Box of the reorder key: K3's chunk boxes, or the LBVH root's box
+    (a ray's result does not depend on its place in the pool, so any box
+    gives the same frames)."""
+    if scene.pallas_tris is not None:
+        return _scene_bounds(scene.pallas_tris[2])
+    root = scene.bvh.nodes[0]
+    return root[0:3], 1.0 / torch.clamp(root[3:6] - root[0:3], min=1e-6)
 
 
 def _segment(scene: CompiledScene, env: EnvironmentState, config: RenderConfig,
@@ -286,7 +305,7 @@ def _sorted_state_loop(scene, env, config, state: PathState):
     st, rng = state.st.clone(), state.rng.clone()
     n = st.shape[1]
     orig = torch.arange(n, dtype=torch.int64, device=st.device)
-    lo, inv_extent = _scene_bounds(scene.pallas_tris[2])
+    lo, inv_extent = _state_bounds(scene)
     live, rays = n, 0
     for _ in range(config.max_segments):
         live = reorder(st, rng, orig, live, lo, inv_extent)

@@ -239,6 +239,17 @@ def check_tables(tables, device) -> None:
             f"trace tables do not match: {[tuple(t.shape) for t in tables]}")
 
 
+def check_planes(planes, n: int, device) -> None:
+    """Raise unless ``planes`` are the eight contiguous 1-D float32 ray
+    planes a trace kernel reads (origin xyz, direction xyz, tmin, tmax),
+    each at least ``n`` long, on ``device``."""
+    if len(planes) != 8 or any(
+            p.device != device or p.dtype != torch.float32 or p.dim() != 1
+            or not p.is_contiguous() or p.shape[0] < n for p in planes):
+        raise ValueError("a trace takes 8 contiguous float32 planes of "
+                         f">= {n} rays on {device}")
+
+
 def trace_planes(tables, planes, n: int, any_hit: bool) -> torch.Tensor:
     """Trace the first ``n`` rays of eight float32 planes (origin xyz,
     direction xyz, tmin, tmax; each contiguous, at least ``n`` long, e.g.
@@ -259,11 +270,7 @@ def trace_planes(tables, planes, n: int, any_hit: bool) -> torch.Tensor:
     if device.type != "cuda":
         raise ValueError(f"no kernel for device {device}")
     check_tables(tables, device)
-    if len(planes) != 8 or any(
-            p.device != device or p.dtype != torch.float32 or p.dim() != 1
-            or not p.is_contiguous() or p.shape[0] < n for p in planes):
-        raise ValueError("trace_planes takes 8 contiguous float32 planes of "
-                         f">= {n} rays on one device")
+    check_planes(planes, n, device)
     if 4 * n >= 2**31:
         raise ValueError(f"{n} rays exceed the kernel's 32-bit offsets")
     out = torch.empty((4, n), dtype=torch.float32, device=device)

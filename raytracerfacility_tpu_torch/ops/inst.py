@@ -42,7 +42,13 @@ import torch
 
 from raytracerfacility_tpu_torch import kernels
 from raytracerfacility_tpu_torch.ops.bvh import morton_codes
-from raytracerfacility_tpu_torch.ops.brute import TraceResult, _planes, _trace_plain as _brute_plain
+from raytracerfacility_tpu_torch.ops.brute import (
+    TraceResult,
+    _planes,
+    check_planes,
+)
+from raytracerfacility_tpu_torch.ops.brute import _trace_plain as _brute_plain
+from raytracerfacility_tpu_torch.ops.math3d import inv_dir
 
 TRI_CHUNK = 256  # default rows per object chunk, the first culling level
 SUB = 32  # rows per sub-run, the second culling level
@@ -78,8 +84,9 @@ def _box_rows(lo, hi) -> torch.Tensor:
 
 def pack_instanced_tables(geoms, instance_geom, instance_matrices,
                           chunk: int = TRI_CHUNK, sub: int = SUB,
-                          device="cpu") -> dict:
-    """Build the shared-geometry tables on ``device``.
+                          device="cuda") -> dict:
+    """Build the shared-geometry tables on ``device`` (the card unless the
+    caller asks for another).
 
     ``geoms``: one (v0, e1, e2) triple of (T, 3) object-space arrays per
     unique geometry. ``instance_geom``: (I,) geometry index of each
@@ -215,16 +222,11 @@ def _grown_boxes(boxes):
     return lo - grow, hi + grow
 
 
-def _inv_dir(d):
-    eps = torch.where(d < 0, -1e-20, 1e-20)
-    return 1.0 / torch.where(d.abs() < 1e-20, eps, d)
-
-
 def _pairs(tables, o, d, tmin, tmax):
     """(ray, instance) pairs whose ray enters the instance's grown world
     box within (tmin, tmax]: two int64 index vectors, instance-major."""
     lo, hi = _grown_boxes(tables["inst_box"])
-    inv = _inv_dir(d)
+    inv = inv_dir(d)
     n, n_inst = o.shape[0], lo.shape[0]
     step = max(1, _PAIR_BLOCK // max(n, 1))
     rays, insts = [], []
@@ -340,11 +342,7 @@ def trace_planes(tables, planes, n: int) -> torch.Tensor:
     if device.type != "cuda":
         raise ValueError(f"no kernel for device {device}")
     check_tables(tables, device)
-    if len(planes) != 8 or any(
-            p.device != device or p.dtype != torch.float32 or p.dim() != 1
-            or not p.is_contiguous() or p.shape[0] < n for p in planes):
-        raise ValueError("trace_planes takes 8 contiguous float32 planes of "
-                         f">= {n} rays on one device")
+    check_planes(planes, n, device)
     if 5 * n >= 2**31:
         raise ValueError(f"{n} rays exceed the kernel's 32-bit offsets")
     out = torch.empty((5, n), dtype=torch.float32, device=device)

@@ -4,7 +4,8 @@ shading steps.
 Port of the part of ``raytracerfacility_tpu/ops/math3d.py`` the ported
 paths read: ``TWO_PI``, ``dot``, ``cross``, ``length``, ``normalize``,
 ``safe_normalize``, ``reflect``, ``tangent_space`` and
-``sample_hemisphere``, and :func:`true_div`. Vectors sit in the trailing axis; three-element
+``sample_hemisphere``, and :func:`inv_dir` (``ops/traverse.py::_safe_inv``)
+and :func:`true_div`. Vectors sit in the trailing axis; three-element
 sums are written out as ``(x + y) + z``.
 """
 
@@ -51,6 +52,14 @@ def safe_normalize(v: torch.Tensor, eps: float = 1e-20) -> torch.Tensor:
 def reflect(incident: torch.Tensor, normal: torch.Tensor) -> torch.Tensor:
     """Ref: RayTracerUtilities.cuh:89-92."""
     return incident - 2.0 * dot(incident, normal)[..., None] * normal
+
+
+def inv_dir(d: torch.Tensor) -> torch.Tensor:
+    """Reciprocal of a ray direction whose components are held at least
+    1e-20 from zero, keeping their sign: the slab tests' inverse (ref
+    traverse.py:55-61, the kernels' ``inv_dir``)."""
+    eps = torch.where(d < 0.0, -1e-20, 1e-20)
+    return 1.0 / torch.where(d.abs() < 1e-20, eps, d)
 
 
 def true_div(x: torch.Tensor, c: float) -> torch.Tensor:

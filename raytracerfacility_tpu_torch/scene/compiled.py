@@ -4,8 +4,10 @@ Port of ``raytracerfacility_tpu/scene/compiled.py``, cut to the fields the
 ported paths read: the world-space primitive soup (``v0``, ``e1``, ``e2``,
 per-corner ``normal``, ``tex_coord``, ``color`` and ``data``,
 ``instance``, ``kind``), the material table, the per-instance material
-slots, the wavefront engine's packed trace table (``pallas_tris``) and the
-path engines' packed trace+shade tables (``fused``, ``fused_chunk``). All
+slots, the wavefront engine's packed trace table (``pallas_tris``), the
+path engines' packed trace+shade tables (``fused``, ``fused_chunk``) and
+the LBVH (``bvh``), which takes their place when the scene is built with
+``build_bvh=True``. All
 instances are baked into one world-space soup, as in the reference (ref
 RayTracer.cu:1251-1715 is the two-level structure this replaces).
 """
@@ -15,6 +17,8 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+
+from raytracerfacility_tpu_torch.ops.bvh import BVH
 
 
 @dataclasses.dataclass(frozen=True)
@@ -59,12 +63,16 @@ class CompiledScene:
     materials: MaterialTable
     instance_material: torch.Tensor  # (I,) int32 material slot per instance
     # (table (N, 12), sub_aabbs (N/32, 8), chunk_aabbs (>=8, 8)) from
-    # ops/brute.py::pack_tri_table, K3's table; the reference's name. The
-    # port always packs it, since its wavefront engine always traces on K3
+    # ops/brute.py::pack_tri_table, K3's table; the reference's name.
+    # Packed unless the scene is built with build_bvh=True
     pallas_tris: tuple | None = None
+    # ops/bvh.py::BVH of the padded soup (K5's tables) when built with
+    # build_bvh=True, else None; the wavefront engine traces on it when
+    # pallas_tris is None
+    bvh: BVH | None = None
     # (table (N, 20), sub_aabbs (N/sub, 8), chunk_aabbs (>=8, 8),
     # mat_table (M_pad, 8)) from ops/fused.py::pack_fused_tables; None for
-    # scenes with curves
+    # scenes with curves and for build_bvh=True
     fused: tuple | None = None
     # triangles per table chunk the fused tables were packed with
     fused_chunk: int = 0

@@ -21,7 +21,8 @@ from raytracerfacility_tpu_torch.enums import (
 )
 from raytracerfacility_tpu_torch.models import pathtracer as pt
 from raytracerfacility_tpu_torch.models.renderer import EnvironmentProperties
-from raytracerfacility_tpu_torch.ops import brute, fused, inst, seg
+from raytracerfacility_tpu_torch.ops import brute, fused, inst, seg, traverse
+from raytracerfacility_tpu_torch.ops.bvh import BVH
 from raytracerfacility_tpu_torch.scene import MaterialProperties
 from raytracerfacility_tpu_torch.scene.builder import compile_shared_instanced
 from raytracerfacility_tpu_torch.scenes import bench_scene, strands_scene
@@ -52,6 +53,18 @@ res, inst = trace_closest_instanced(
     torch.nn.functional.normalize(torch.randn(64, 3) * 0.3 + torch.tensor([0.0, -1.0, -1.0]), dim=1),
     1e-3, 100.0)
 assert int(res.hit.sum()) > 0 and bool(((inst >= 0) == res.hit).all())
+from raytracerfacility_tpu_torch.ops.traverse import trace_any_bvh, trace_closest_bvh
+scene, cam, env = bench_scene(8, 8)
+compiled = scene.build("cpu", build_bvh=True)
+assert compiled.pallas_tris is None and compiled.bvh.num_nodes == 2 * 2816 - 1
+o = torch.tensor([[0.0, 1.1, 2.6]]).expand(64, 3)
+d = torch.nn.functional.normalize(torch.randn(64, 3) * 0.3 + torch.tensor([0.0, -0.2, -1.0]), dim=1)
+res = trace_closest_bvh(compiled.bvh, o, d, 0.0, 1e20)
+assert int(res.hit.sum()) > 0 and bool((trace_any_bvh(compiled.bvh, o, d, 0.0, 1e20) == res.hit).all())
+frame, rays = render_frames_counted(
+    compiled, cam.state("cpu"), env.state("cpu"),
+    RenderConfig(width=8, height=8, bounces=2), init_frame(8, 8, "cpu"), 1)
+assert frame.color.shape == (8, 8, 4) and int(rays) > 64
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "raytracerfacility_tpu"))
 print("LOADED", bad)
@@ -101,6 +114,13 @@ def test_wrappers_do_not_fall_back_off_the_cpu():
               compile_shared_instanced(scene, "cpu").items()}
     with pytest.raises(ValueError):
         inst.trace_planes(tables, [torch.zeros(64, device="meta")] * 8, 64)
+    lbvh = scene.build("cpu", build_bvh=True).bvh
+    lbvh = BVH(nodes=lbvh.nodes.to("meta"), tris=lbvh.tris.to("meta"),
+               tri_prim=lbvh.tri_prim.to("meta"))
+    for any_hit in (False, True):
+        with pytest.raises(ValueError):
+            traverse.trace_planes(lbvh, [torch.zeros(64, device="meta")] * 8, 64,
+                                  any_hit)
 
 
 @pytest.mark.parametrize("bad", ["chunk", "columns", "env", "offsets"])
@@ -143,6 +163,54 @@ def test_instanced_tables_are_validated(bad):
         tables["inst_box"] = tables["inst_box"][:-1].contiguous()
     with pytest.raises(ValueError):
         inst.check_tables(tables, torch.device("cpu"))
+
+
+@pytest.mark.parametrize("bad", ["device", "dtype", "columns", "contiguity",
+                                 "alignment"])
+def test_bvh_tables_are_validated(bad):
+    """K5 loads a node as two float4 and a row as three, by 32-bit node
+    and row indices: tables it would misread never launch."""
+    scene, _, _ = bench_scene(8, 8)
+    lbvh = scene.build("cpu", build_bvh=True).bvh
+    device = torch.device("cpu")
+    traverse.check_bvh(lbvh, device)
+    nodes, tris = lbvh.nodes, lbvh.tris
+    if bad == "device":
+        device = torch.device("meta")
+    elif bad == "dtype":
+        nodes = nodes.double()
+    elif bad == "columns":
+        tris = tris[:, :9].contiguous()
+    elif bad == "contiguity":
+        nodes = torch.cat([nodes, nodes], 1)[:, :8]
+    else:  # a view 4 bytes into its storage
+        flat = torch.cat([torch.zeros(1), tris.reshape(-1)])
+        tris = flat[1:].view(-1, 12)
+    with pytest.raises(ValueError):
+        traverse.check_bvh(BVH(nodes=nodes, tris=tris, tri_prim=lbvh.tri_prim),
+                           device)
+
+
+@pytest.mark.parametrize("bad", ["count", "dtype", "contiguity", "length",
+                                 "device"])
+def test_trace_planes_are_validated(bad):
+    """The trace kernels (K3, K4, K5) read eight contiguous float32 ray
+    planes of at least n rays on the tables' device."""
+    planes = [torch.zeros(64) for _ in range(8)]
+    device = torch.device("cpu")
+    brute.check_planes(planes, 64, device)
+    if bad == "count":
+        planes = planes[:7]
+    elif bad == "dtype":
+        planes[3] = planes[3].double()
+    elif bad == "contiguity":
+        planes[6] = torch.zeros(128)[::2]
+    elif bad == "length":
+        planes[7] = planes[7][:63]
+    else:
+        device = torch.device("meta")
+    with pytest.raises(ValueError):
+        brute.check_planes(planes, 64, device)
 
 
 def test_package_data_ships_kernel_sources():

@@ -63,7 +63,8 @@ def _window(r):
 
 def test_pack_matches_reference():
     geoms, inst_geom, mats = _scene()
-    mine = inst.pack_instanced_tables(geoms, inst_geom, mats, chunk=128, sub=16)
+    mine = inst.pack_instanced_tables(geoms, inst_geom, mats, chunk=128, sub=16,
+                                      device="cpu")
     _assert_tables_equal(mine, ref_pack(geoms, inst_geom, mats, chunk=128, sub=16))
     # the port's own keys: each instance's chunk range and the hull of its
     # step boxes
@@ -75,13 +76,15 @@ def test_pack_matches_reference():
         assert torch.equal(mine["inst_box"][i, 0:3], steps[mask, 0:3].min(0).values)
         assert torch.equal(mine["inst_box"][i, 3:6], steps[mask, 3:6].max(0).values)
     with pytest.raises(ValueError):
-        inst.pack_instanced_tables(geoms, inst_geom, mats, chunk=100, sub=16)
+        inst.pack_instanced_tables(geoms, inst_geom, mats, chunk=100, sub=16,
+                                   device="cpu")
 
 
 def test_trace_matches_reference():
     """The 900 rays of test_instanced.py::test_instanced_parity_oracle."""
     geoms, inst_geom, mats = _scene()
-    tables = inst.pack_instanced_tables(geoms, inst_geom, mats, chunk=128, sub=16)
+    tables = inst.pack_instanced_tables(geoms, inst_geom, mats, chunk=128, sub=16,
+                                        device="cpu")
     o, d = (np.array(x) for x in _rays(900))
     tmin, tmax = _window(900)
     ref, ref_iid = ref_trace(ref_pack(geoms, inst_geom, mats, chunk=128, sub=16),
