@@ -144,7 +144,8 @@ def check_k1(device, width, height, segments):
     """K1 against its plain version on the main path's segment sequence:
     bench_scene camera rays, then ``segments - 1`` further segments, each
     fed from the kernel's own output after the reorder and launched over
-    the live prefix. Returns the largest |d| of any state plane."""
+    the live prefix. Every ray must equal (:func:`check_k1_launch`).
+    Returns the largest |d| of any state plane (0)."""
     import torch
 
     from raytracerfacility_tpu_torch.ops import fused, seg
@@ -163,34 +164,71 @@ def check_k1(device, width, height, segments):
         first = s == 0
         if not first:
             live = seg.reorder(st, rng, orig, live, lo, inv_extent)
-        st_k, rng_k = st.clone(), rng.clone()
-        st_p, rng_p = st.clone(), rng.clone()
-        aov_k = seg.segment(tables, env, st_k, rng_k, live, first, True, chunk)
-        aov_p = seg._segment_plain(tables, env, st_p, rng_p, live, first, True)
-        torch.cuda.synchronize()
-        a, b = st_k[:, :live], st_p[:, :live]
-        # the hit: same continuation and bit-identical hit point
-        same_hit = ((a[fused.ACT] == b[fused.ACT])
-                    & (a[fused.OX:fused.OZ + 1] == b[fused.OX:fused.OZ + 1]).all(0))
-        if first:  # ... and the same surface: material albedo + normal
-            same_hit &= (aov_k[0:6] == aov_p[0:6]).all(0)
-        agree = float(same_hit.float().mean())
-        act_agree = float((a[fused.ACT] == b[fused.ACT]).float().mean())
-        rng_agree = float((rng_k == rng_p).float().mean())
-        print(f"  segment {s}: {live} rays, hit agree {agree:.6f} "
-              f"act agree {act_agree:.6f} rng agree {rng_agree:.6f}")
-        if min(agree, act_agree, rng_agree) < HIT_AGREE:
-            raise AssertionError(f"K1 segment {s}: hit records disagree")
-        q = max(_check_aov(a[k], b[k], f"segment {s} plane {k}")
-                for k in range(fused.NPLANES))
-        if first:
-            q = max([q] + [_check_aov(aov_k[k], aov_p[k], f"segment 0 aov {k}")
-                           for k in range(fused.NAOV)])
-        err = float((st_k - st_p).abs().max())
+        launch = (tables, env, st, rng, live, first, True, chunk)
+        err, _, (st, rng) = check_k1_launch(launch, None, f"segment {s}")
         worst = max(worst, err)
-        print(f"    planes: worst |d| p99.9 {q:.3g}, max |d| {err:.3g}")
-        st, rng = st_k, rng_k
     return worst
+
+
+def capture_k1(render, launch=0):
+    """Run ``render()`` with K1's wrapper recording the inputs of its
+    launch number ``launch``: (tables, env, st, rng, n, is_first, has_cont,
+    chunk), cloned."""
+    from raytracerfacility_tpu_torch.ops import seg
+
+    seen = []
+    real = seg.segment
+
+    def spy(tables, env, st, rng, n, is_first, has_cont, chunk, stats=False):
+        if len(seen) <= launch:
+            seen.append((tables, env.clone(), st[:, :n].clone(), rng[:n].clone(), n,
+                         is_first, has_cont, chunk))
+        return real(tables, env, st, rng, n, is_first, has_cont, chunk, stats)
+
+    seg.segment = spy
+    try:
+        render()
+    finally:
+        seg.segment = real
+    return seen[launch]
+
+
+def check_k1_launch(launch, rays, what):
+    """K1 over a whole captured launch against its plain version on
+    ``rays`` (a long tensor of ray indices; None: every ray): every state
+    plane, the RNG and the first segment's AOVs must be equal on every
+    checked ray (0 rays differ). Returns (max |d| (0), the plain version's
+    ms (CUDA events), the kernel's (state, rng) after the launch)."""
+    import torch
+
+    from raytracerfacility_tpu_torch.ops import seg
+    from raytracerfacility_tpu_torch.ops.fused import ACT
+
+    tables, env, st, rng, n, first, has_cont, chunk = launch
+    st_k, rng_k = st.clone(), rng.clone()
+    aov_k = seg.segment(tables, env, st_k, rng_k, n, first, has_cont, chunk)
+    if rays is None:
+        rays = torch.arange(n, device=st.device)
+    st_p, rng_p = st[:, rays].contiguous(), rng[rays].contiguous()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    aov_p = seg._segment_plain(tables, env, st_p, rng_p, rays.numel(), first, has_cont)
+    end.record()
+    end.synchronize()
+    a = st_k[:, rays]
+    same = (a == st_p).all(0) & (rng_k[rays] == rng_p)
+    if first:
+        same &= (aov_k[:, rays] == aov_p).all(0)
+    differ = int((~same).sum())
+    err = float((a - st_p).abs().max()) if rays.numel() else 0.0
+    print(f"  K1 {what}: {n} rays in the launch, {rays.numel()} checked against "
+          f"the plain version ({int((st[ACT, rays] > 0).sum())} live): "
+          f"{differ} differ (state planes, RNG{', AOVs' if first else ''}); "
+          f"max |d| {err:.3g}")
+    if differ:
+        raise AssertionError(f"K1 {what}: {differ} rays differ from the plain version")
+    return err, start.elapsed_time(end), (st_k, rng_k)
 
 
 def check_k2(device, width, height, frames, bounces):
@@ -290,10 +328,10 @@ def capture_k3(render):
 
 def check_k3(tables, planes, n, any_hit):
     """K3 against its plain version on all ``n`` rays of a captured launch.
-    Closest hit: (t, prim, u, v) equal on >= 99.9% of all rays and of the
-    rays that hit in either. Any-hit: the occlusion flag equal on >= 99.9%
-    of the rays with a live window (tmax not DEAD) and of the rays occluded
-    in either, so a lost occluder counts against the few that are. Returns
+    Closest hit: (t, prim, u, v) equal on every ray. Any-hit: the occlusion
+    flag equal on every ray with a live window (tmax not DEAD); 0 rays may
+    differ. A differing ray is traced again with every box open, which
+    tells a cull's decision from a row test's. Returns
     (max |d| of t over rays both hit, kernel output, plain ms: one call,
     CUDA events)."""
     import torch
@@ -348,9 +386,107 @@ def check_k3(tables, planes, n, any_hit):
                   f"{[float(x) for x in out_k[:, i]]}, plain "
                   f"{[float(x) for x in out_p[:, i]]}, boxes open "
                   f"{[float(x) for x in open_k[:, j]]}")
-    if min(agree, agree_hits) < HIT_AGREE:
-        raise AssertionError("K3 disagrees with its plain version")
+    if diff.numel():
+        raise AssertionError(f"K3 disagrees with its plain version on {diff.numel()} rays")
     return err, out_k, start.elapsed_time(end)
+
+
+# the 3 rays of config 7's first K3 launch whose grazing start-cap hit lies
+# before its run box's entry (tests/test_torch_sweep.py JUNCTION_BITS)
+JUNCTION_RAYS = (439156, 688477, 982397)
+
+
+def check_junction(launch, out_k):
+    """The junction rays of config 7's first launch: an unpadded cull in
+    index order (``ops/sweep.py``, the earlier K3) takes a farther segment
+    than the plain version on each; the kernel takes the plain one. Prints
+    their ray planes as int32 bits."""
+    import torch
+
+    from raytracerfacility_tpu_torch.ops import brute, sweep
+
+    tables, planes, n = launch
+    idx = torch.tensor(JUNCTION_RAYS, device=planes[0].device)
+    rays = torch.stack([p[idx] for p in planes], 1)
+    want = brute._trace_plain(tables[0], rays.T.contiguous(), idx.numel())
+    rec, _, _ = sweep.sweep(*tables, brute.TRI_CHUNK, rays[:, 0:3], rays[:, 3:6],
+                            rays[:, 6], rays[:, 7], rays[:, 7] > rays[:, 6], "k3",
+                            order="index", pad=False)
+    unpadded = torch.stack([rec[k] for k in ("t", "id", "u", "v")])
+    print(f"  junction rays {JUNCTION_RAYS}: plain prims "
+          f"{want[1].to(torch.int64).tolist()}, t {want[0].tolist()}; unpadded "
+          f"index-order cull {unpadded[1].to(torch.int64).tolist()}, t "
+          f"{unpadded[0].tolist()}; kernel {out_k[1, idx].to(torch.int64).tolist()}; "
+          f"bits {rays.contiguous().view(torch.int32).tolist()}")
+    if not (bool((unpadded[1] != want[1]).all())
+            and torch.equal(out_k[:, idx], want)):
+        raise AssertionError("the junction rays are not the recorded fault")
+
+
+# a table of more chunks than a warp's list holds (sweep.LIST_CAP), whose
+# boxes every ray enters: ROUND_FRONT chunks of slivers (wide boxes, next
+# to no area) over ROUND_BACK chunks of large triangles, along the rays
+ROUND_FRONT, ROUND_BACK, ROUND_RAYS, ROUND_WARPS = 100, 1000, 4096, 4
+
+
+def check_rounds(device):
+    """K3 on a table whose warps key their chunks in rounds (the sweep's
+    branch past sweep.LIST_CAP entered chunks): closest hit and any-hit
+    against the plain version on every ray (0 differ), and the counters of
+    a few warps against the replay, whose closest-hit warps must take
+    more than one round. Returns the largest |d| of t (0)."""
+    import numpy as np
+    import torch
+
+    from raytracerfacility_tpu_torch.ops import brute, sweep
+
+    rng = np.random.default_rng(11)
+
+    def u(lo, hi, n):
+        return rng.uniform(lo, hi, (n, 3)).astype(np.float32)
+
+    nf, nb = ROUND_FRONT * brute.TRI_CHUNK, ROUND_BACK * brute.TRI_CHUNK
+    v0 = np.concatenate([u(-0.1, 0.1, nf), u(-0.1, 0.1, nb)])
+    v0[:nf, 2] = rng.uniform(1, 50, nf)
+    v0[nf:, 2] = rng.uniform(-50, 0, nb)
+    e1 = np.concatenate([u(-2, 2, nf), u(-1, 1, nb)])
+    e2 = np.concatenate([e1[:nf] * 1e-3 + u(-1e-4, 1e-4, nf), u(-1, 1, nb)])
+    tables = brute.pack_tri_table(*(torch.tensor(x, device=device)
+                                    for x in (v0, e1, e2)))
+    o = u(-0.3, 0.3, ROUND_RAYS)
+    o[:, 2] = 60.0
+    d = u(-0.002, 0.002, ROUND_RAYS)
+    d[:, 2] = -1.0
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    o, d = torch.tensor(o, device=device), torch.tensor(d, device=device)
+    planes = [x.contiguous() for x in (*o.T, *d.T)] + [
+        torch.zeros(ROUND_RAYS, device=device),
+        torch.full((ROUND_RAYS,), brute.TMAX, device=device)]
+    want = brute._trace_plain(tables[0], torch.stack(planes), ROUND_RAYS)
+    err = 0.0
+    for any_hit in (False, True):
+        out, counts, wrows = brute.trace_planes(tables, planes, ROUND_RAYS, any_hit,
+                                                stats=True)
+        same = ((out[1] >= 0) == (want[1] >= 0)) if any_hit else (out == want).all(0)
+        m = ROUND_WARPS * sweep.WARP
+        rec, c_e, w_e = sweep.sweep(*tables, brute.TRI_CHUNK, o[:m], d[:m],
+                                    planes[6][:m], planes[7][:m],
+                                    planes[7][:m] > planes[6][:m], "k3", any_hit)
+        rounds = rec["rounds"][::sweep.WARP]
+        equal = torch.equal(c_e, counts[:, :m]) and torch.equal(w_e, wrows[:ROUND_WARPS])
+        print(f"  K3 {'any-hit' if any_hit else 'closest'} on "
+              f"{tables[0].shape[0] // brute.TRI_CHUNK} chunks that every ray enters, "
+              f"{ROUND_RAYS} rays ({int((want[1] >= 0).sum())} hit): "
+              f"{int((~same).sum())} differ "
+              f"from the plain version; counters of {ROUND_WARPS} warps == emulation: "
+              f"{equal}, rounds a warp {rounds.tolist()}")
+        # closest-hit lanes stay to the last chunk; any-hit lanes may stop
+        if not (bool(same.all()) and equal and (any_hit or bool((rounds > 1).all()))):
+            raise AssertionError("K3's rounds disagree with the plain version or "
+                                 "the replay, or took one round")
+        if not any_hit:
+            err = float((out[0] - want[0]).abs().max())
+    return err
 
 
 # Operations of one ray-primitive test as the kernels write it (multiplies,
@@ -362,44 +498,88 @@ PEAK_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 
 
-def culled_tests(tables, chunk, planes, n, best_t, batch=1 << 18):
+def culled_tests(tables, chunk, planes, n, best_t):
     """(triangle tests, curve tests) a per-ray cull leaves when every box
     test compares against the ray's final best t: the least work a
     traversal that knew its answer would do, so a lower bound of the
     kernel's. ``planes`` as K3's (origin, direction, tmin first), ``tables``
-    (rows, sub-run boxes with the run kind in column 6, chunk boxes)."""
+    (rows, sub-run boxes with the run kind in column 6, chunk boxes);
+    ``ops/sweep.py::floor_runs`` counts the runs."""
     import torch
 
+    from raytracerfacility_tpu_torch.ops import sweep
+
     rows, subs, chunks = tables[0], tables[1], tables[2]
-    nchunks = rows.shape[0] // chunk
     sub = rows.shape[0] // subs.shape[0]
-    curve_run = subs[:, 6] >= 0.5
-    tri = cur = 0
-    for r0 in range(0, n, batch):
-        sl = slice(r0, min(n, r0 + batch))
-        o = [p[sl, None] for p in planes[0:3]]
-        iv = []
-        for p in planes[3:6]:
-            d = p[sl, None]
-            eps = torch.where(d < 0, -1e-20, 1e-20)
-            iv.append(1.0 / torch.where(d.abs() < 1e-20, eps, d))
-        tmin, bt = planes[6][sl, None], best_t[sl, None]
+    tri, cur, _ = sweep.floor_runs(
+        subs, chunks, chunk, sub, torch.stack([p[:n] for p in planes[0:3]], 1),
+        torch.stack([p[:n] for p in planes[3:6]], 1), planes[6][:n], best_t[:n])
+    return int(tri.sum()) * sub, int(cur.sum()) * sub
 
-        def enters(box):
-            near = far = None
-            for a in range(3):
-                t1 = (box[None, :, a] - o[a]) * iv[a]
-                t2 = (box[None, :, a + 3] - o[a]) * iv[a]
-                lo, hi = torch.minimum(t1, t2), torch.maximum(t1, t2)
-                near = lo if near is None else torch.maximum(near, lo)
-                far = hi if far is None else torch.minimum(far, hi)
-            return (near <= far) & (far > tmin) & (near <= bt)
 
-        runs = enters(subs) & enters(chunks[:nchunks]).repeat_interleave(
-            chunk // sub, dim=1)
-        tri += int((runs & ~curve_run).sum()) * sub
-        cur += int((runs & curve_run).sum()) * sub
-    return tri, cur
+# warps of a timed launch whose work counters the emulation replays
+SAMPLE_WARPS = 256
+
+
+def sweep_work(tables, chunk, rays, kernel, best_t, what, layout, any_hit=False,
+               warps=SAMPLE_WARPS):
+    """The sweep's work on a strided sample of whole warps of a launch.
+    ``rays`` = (o (n, 3), d (n, 3), tmin, tmax, live), ``kernel`` = the
+    kernel's (counters, warp rows) from a ``stats=True`` launch, ``best_t``
+    each ray's final best t (any-hit: DEAD where occluded). The kernel's
+    counters must equal ``ops/sweep.py``'s "warp" emulation exactly; the
+    "index" emulation without the cull pad is the earlier kernels' work;
+    the floor is a cull at the final best t (``sweep.floor_runs``; an
+    occluded any-hit ray one row). Returns {name: (rows a ray mean, p99,
+    warp rows mean, max)} for "index", "kernel", "floor"."""
+    import torch
+
+    from raytracerfacility_tpu_torch.ops import brute, sweep
+
+    # the replay runs on the host: a sample's tensors are small, and on the
+    # card each of its many small steps would wait for the device
+    cpu = torch.device("cpu")
+    tables = [t.to(cpu) for t in tables[:3]]
+    kernel = [k.to(cpu) for k in kernel]
+    o, d, tmin, tmax, live, best_t = (x.to(cpu) for x in (*rays, best_t))
+    nw = o.shape[0] // sweep.WARP
+    w = torch.arange(0, nw, max(1, nw // warps))
+    idx = (w[:, None] * sweep.WARP + torch.arange(sweep.WARP)).reshape(-1)
+    args = (*tables, chunk, o[idx], d[idx], tmin[idx], tmax[idx], live[idx], layout)
+    t0 = time.perf_counter()
+    rec, counts, wrows = sweep.sweep(*args, any_hit=any_hit, order="warp")
+    rounds = rec["rounds"][::sweep.WARP]
+    equal = torch.equal(counts, kernel[0][:, idx]) and torch.equal(wrows, kernel[1][w])
+    _, old, old_w = sweep.sweep(*args, any_hit=any_hit, order="index", pad=False)
+    sub = tables[0].shape[0] // tables[1].shape[0]
+    tri, cur, floor_w = sweep.floor_runs(tables[1], tables[2], chunk, sub, o[idx],
+                                         d[idx], tmin[idx], best_t[idx])
+    floor = (tri + cur) * sub
+    if any_hit:
+        hit = best_t[idx] == brute.DEAD
+        floor = floor + hit
+        floor_w = floor_w + hit.view(-1, sweep.WARP).any(1)
+    lv = live[idx]
+    out = {}
+    for name, rows, wr in (("index", old[4], old_w), ("kernel", counts[4], wrows),
+                           ("floor", floor, floor_w)):
+        r = rows[lv].double()
+        out[name] = (float(r.mean()), _quantile(r, 0.99), float(wr.double().mean()),
+                     float(wr.max()))
+    print(f"  {what}: counters of {w.numel()} warps ({int(lv.sum())} live rays), "
+          f"kernel == emulation: {equal} ({time.perf_counter() - t0:.1f} s); "
+          f"{int((rounds > 1).sum())} warps keyed their chunks in more than one "
+          f"round (at most {int(rounds.max())}); "
+          f"kernel a live ray: chunk slabs {float(counts[0][lv].double().mean()):.1f}, "
+          f"chunks entered {float(counts[1][lv].double().mean()):.2f}, run slabs "
+          f"{float(counts[2][lv].double().mean()):.1f}, runs entered "
+          f"{float(counts[3][lv].double().mean()):.2f}")
+    for name, (mean, p99, wmean, wmax) in out.items():
+        print(f"    rows tested a ray ({name}): mean {mean:.2f}, p99 {p99:.0f}; "
+              f"row iterations a warp: mean {wmean:.1f}, max {wmax:.0f}")
+    if not equal:
+        raise AssertionError(f"{what}: kernel counters differ from the emulation")
+    return out
 
 
 def bound(nbytes, tri, cur):
@@ -408,6 +588,71 @@ def bound(nbytes, tri, cur):
     t_bytes = nbytes / PEAK_BYTES
     t_ops = (tri * TRI_OPS + cur * CURVE_OPS) / PEAK_FLOPS
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def k1_shape(launch, ms, bnd, by, best_t, what, warps=SAMPLE_WARPS):
+    """A K1 launch's JSON numbers: its time and bound, and the sweep's
+    work on a sample of its warps (:func:`sweep_work`) from a ``stats``
+    launch of the kernel."""
+    import torch
+
+    from raytracerfacility_tpu_torch.ops import fused, seg, sweep
+
+    tables, env, st, rng, n, first, has_cont, chunk = launch
+    _, *kernel = seg.segment(tables, env, st.clone(), rng.clone(), n, first,
+                             has_cont, chunk, stats=True)
+    s = st[:, :n]
+    tmin = torch.full((n,), float(env[10]) if first else fused._BOUNCE_TMIN,
+                      device=st.device)
+    work = sweep_work(tables, chunk, (s[fused.OX:fused.OZ + 1].T,
+                                      s[fused.DX:fused.DZ + 1].T, tmin,
+                                      torch.full_like(tmin, sweep.K1_TMAX),
+                                      s[fused.ACT] > 0.0), kernel, best_t, f"K1 {what}",
+                      "k1", warps=warps)
+    return {"rays": n, "ms": ms, "bound_ms": bnd, "bound_by": by, "work": work}
+
+
+def k1_launch(launch, k3_tables, rays, what, warps=SAMPLE_WARPS):
+    """A captured K1 launch off the 1080p path (config 4's, config 6's):
+    the kernel against its plain version on ``rays`` (None: every ray),
+    the median of five timings, each ray's final best t from K3 over the
+    same scene (the same v0, e1, e2 and Moller-Trumbore as K1's rows, so
+    the same t; checked against K1's plain trace on a sample), the bound
+    and the sweep's work. Returns (max |d|, plain ms, JSON numbers)."""
+    import torch
+
+    from raytracerfacility_tpu_torch import kernels
+    from raytracerfacility_tpu_torch.ops import brute, fused, seg, sweep
+
+    tables, env, st, rng, n, first, has_cont, chunk = launch
+    err, plain_ms, _ = check_k1_launch(launch, rays, what)
+    ms, times = _median_ms(lambda: seg.segment(tables, env, st.clone(), rng.clone(),
+                                               n, first, has_cont, chunk))
+    tmin = float(env[10]) if first else fused._BOUNCE_TMIN
+    planes = [st[k, :n].contiguous() for k in range(fused.OX, fused.DZ + 1)] + [
+        torch.full((n,), tmin, device=st.device),
+        torch.full((n,), torch.nextafter(torch.tensor(sweep.K1_TMAX),
+                                         torch.tensor(torch.inf)).item(),
+                   device=st.device)]
+    out = brute.trace_planes(k3_tables, planes, n, False)
+    best_t = torch.where(out[1] >= 0, out[0], sweep.K1_TMAX)
+    some = torch.arange(0, n, max(1, n // 1024), device=st.device)
+    want = fused._trace_plain(tables[0], st[:, some], tmin)[0]
+    live = st[fused.ACT, some] > 0.0
+    if not torch.equal(best_t[some][live], want[live]):
+        raise AssertionError(f"{what}: K3's t differs from K1's plain trace")
+    tri, _ = culled_tests(tables, chunk, planes, n, best_t)
+    # 14 planes in (13 state + rng), 14 out, 9 AOV planes out when first
+    nbytes = _nbytes(*tables) + _nbytes(env) + 4 * (28 + 9 * first) * n
+    bnd, by = bound(nbytes, tri, 0)
+    print(f"  K1 {what} at {n} rays ({tables[0].shape[0] // chunk} chunks, "
+          f"{kernels.THREADS // sweep.WARP * 4 * min(tables[0].shape[0] // chunk, sweep.LIST_CAP)}"
+          f" bytes of shared memory a block): kernel median of 5 {ms:.3f} ms "
+          f"({', '.join(f'{t:.3f}' for t in times)}), plain {plain_ms:.1f} ms on "
+          f"{n if rays is None else rays.numel()} rays; {tri} triangle tests after "
+          f"culling, bound {bnd:.4f} ms by {by}")
+    shape = k1_shape(launch, ms, bnd, by, best_t, what, warps)
+    return err, plain_ms, dict(shape, plain_rays=n if rays is None else rays.numel())
 
 
 def _nbytes(*tensors):
@@ -755,6 +1000,10 @@ def forest_phase(device, totals):
 # and SingleLightSource; config 7's strands at 2 pooled frames
 C6_BOUNCES, C6_FRAMES = 2, 2
 C7_BVH_FRAMES = 2
+# K1 on config 6's first segment: its plain version on every 512th warp
+# (1,024 rays), the work counters on 32 warps (2,029 chunks a warp's
+# emulation walks)
+C6_K1_STRIDE, C6_K1_WARPS = 512, 32
 # K5 against K3 on the same rays: the hit flag agrees on > 99.9% of rays;
 # where both take the same primitive t agrees within these (relative past
 # |t| = 1), triangles and curves; rays on different primitives outside
@@ -912,8 +1161,9 @@ def lbvh_phase(device, totals):
     under Scene and SLS lighting, the segmented engine (K1) on the same
     frames, K5 against its plain version on every ray of the captured
     launches and against K3 on the same rays, and config 7's strands on
-    the walker. Returns {kernel name: (max |d|, ms, plain ms, bound ms,
-    bound by)}."""
+    the walker; K1 on the first launch of the segmented render. Returns
+    ({kernel name: (max |d|, ms, plain ms, bound ms, bound by)}, K1's
+    (max |d|, plain ms, numbers) there)."""
     import torch
 
     from raytracerfacility_tpu_torch.enums import EnvironmentalLightingType
@@ -1013,6 +1263,16 @@ def lbvh_phase(device, totals):
         raise AssertionError("the walker and K1 disagree on live rays")
     wall_ms, busy_ms, _, fam = profile_call(lambda: render(walker))
     print_profile("config-6 walker call", wall_ms, busy_ms, fam, medians["walker"])
+    wall_ms, busy_ms, _, fam = profile_call(lambda: render(packed))
+    print_profile("config-6 K1 call", wall_ms, busy_ms, fam, medians["K1"])
+    # K1 on the first launch of the K1 render: the plain version on every
+    # C6_K1_STRIDE-th warp (on all 524,288 rays it would take minutes)
+    launch = capture_k1(lambda: render(packed))
+    nw = launch[4] // 32
+    rays = (torch.arange(0, nw, C6_K1_STRIDE, device=device)[:, None] * 32
+            + torch.arange(32, device=device)).reshape(-1)
+    k1_c6 = k1_launch(launch, packed.pallas_tris, rays, "config 6 segment 0",
+                      warps=C6_K1_WARPS)
 
     # phase 15: K5 against its plain version at the path's shapes
     closest = [c for c in capture_k5(lambda: render(walker)) if not c[0]]
@@ -1067,7 +1327,7 @@ def lbvh_phase(device, totals):
               f"{int(res[2][1].sum())}), {nbytes / 1e6:.1f} MB of distinct nodes, "
               f"rows and ray planes; bound {b:.4f} ms by {by}")
         rows[name] = (err, ms, plain_ms, b, by)
-    return rows
+    return rows, k1_c6
 
 
 # BASELINE config 4 (bench.py:197-241): the per-triangle illumination
@@ -1079,6 +1339,9 @@ C4_VARIANTS = (("exact reorder", "0", "0"), ("bperm 8", "8", "0"),
 BPERM_ROWS = 8
 # the reference's cross-engine gate for probe energies (tests/test_fused.py:603)
 PROBE_Q99 = 2e-3
+# warps of config 4's first K1 launch whose counters are replayed (217
+# chunks, incoherent rays: a long replay a warp)
+C4_K1_WARPS = 32
 # K6's bytes a ray: 13 float32 state planes, the int32 RNG and the int64
 # original index, read once and written once
 K6_BYTES_PER_RAY = 2 * (13 * 4 + 4 + 8)
@@ -1200,7 +1463,8 @@ def illumination_phase(device, totals, render_1080p, frame_1080p, rays_1080p):
     K6 against its plain version on every captured launch, K1 on dead rays
     inside its launch, the 1080p main path with the block reorder (its
     frame must equal the default), K6's times, and a tiny estimate on the
-    card against the CPU. Returns K6's JSON numbers."""
+    card against the CPU; K1 on the first presorted launch. Returns K6's
+    JSON numbers and K1's (max |d|, plain ms, numbers) there."""
     import numpy as np
     import torch
 
@@ -1260,8 +1524,13 @@ def illumination_phase(device, totals, render_1080p, frame_1080p, rays_1080p):
               f"{pool / med / 1e6:.4f} Mprobe-rays/s; flux {est.total_flux}")
     with _bperm("0", "0"):
         wall_ms, busy_ms, _, fam = profile_call(sample)
+        launch = capture_k1(lambda: estimate_illumination_counted(
+            compiled, env_s, config, probes, seed=C4_SEED))
     print_profile("config-4 estimate, exact reorder", wall_ms, busy_ms, fam,
                   c4_median)
+    # K1 on the first (presorted) launch, against its plain version on every ray
+    k1_c4 = k1_launch(launch, compiled.pallas_tris, None,
+                      "config 4 presorted segment 0", warps=C4_K1_WARPS)
     base, base_rays = results[C4_VARIANTS[0][0]]
     if not (bool(torch.isfinite(base.energy).all()) and float(base.energy.mean()) > 1e-3
             and base_rays >= pool):
@@ -1369,7 +1638,7 @@ def illumination_phase(device, totals, render_1080p, frame_1080p, rays_1080p):
             or abs(outs[0][1] - outs[1][1]) > max(2, 1e-3 * outs[1][1])
             or float(outs[1][0].energy.mean()) <= 1e-3):
         raise AssertionError("the card's estimate differs from the CPU's")
-    return k6_err, k6
+    return k6_err, k6, k1_c4
 
 
 
@@ -1496,6 +1765,41 @@ def median_calls(render, reps=5):
     return sorted(walls)[len(walls) // 2], walls, rays
 
 
+def ptxas_summary(log):
+    """{kernel: "R registers, S/L bytes spill stores/loads, B bytes static
+    smem"} from nvcc's ``-Xptxas -v`` log (the sweep kernels also take 4
+    bytes of dynamic shared memory a chunk a warp)."""
+    info, current, props = {}, None, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            current = m.group(1)
+            info[current] = {"spills": "spills not reported"}
+            continue
+        m = re.search(r"Function properties for (\w+)", line)
+        if m:
+            props = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and props in info:
+            info[props]["spills"] = f"{m.group(1)}/{m.group(2)} bytes spill stores/loads"
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and current in info:
+            smem = re.search(r"(\d+) bytes smem", line)
+            info[current]["regs"] = f"{m.group(1)} registers"
+            info[current]["smem"] = f"{smem.group(1) if smem else 0} bytes static smem"
+    names = {}
+    for mangled, fields in info.items():
+        m = re.match(r"_ZN3rtf\d+(\w+?)(I.*)?E", mangled)
+        name = m.group(1) if m else mangled
+        if m and m.group(2):
+            name += "<" + ", ".join("true" if b == "1" else "false"
+                                    for b in re.findall(r"Lb(\d)E", m.group(2))) + ">"
+        names[name] = ", ".join(fields.get(k, "?") for k in ("regs", "spills", "smem"))
+    return names
+
+
 def counted(render, expect, totals):
     """Drive one path with every launch counter set to 0 just before and
     read just after; raise unless exactly the kernels in ``expect`` (name
@@ -1545,9 +1849,9 @@ def main() -> int:
     # phase 1: build, one nvcc per source, all at once
     built = kernels.build()
     print(f"phase 1: kernels built in {built['seconds']:.1f} s -> {built['paths']}")
-    for line in built["log"].splitlines():
-        if "registers" in line or "spill" in line or "Compiling entry" in line:
-            print("  " + line.strip())
+    ptxas = ptxas_summary(built["log"])
+    for name, info in ptxas.items():
+        print(f"  {name}: {info}")
     for name in kernels.SOURCES:
         kernels.library(name)
 
@@ -1667,8 +1971,10 @@ def main() -> int:
           f"frames) and the SLS config-7 shadow rays, every ray of each")
     closest = capture_k3(render_c7)[False]
     k3c_err, k3c_out, k3c_plain_ms = check_k3(*closest, False)
+    check_junction(closest, k3c_out)
     shadow = capture_k3(lambda: render_c7(sls_c7, sls_env.state(device)))[True]
     k3a_err, k3a_out, k3a_plain_ms = check_k3(*shadow, True)
+    k3c_err = max(k3c_err, check_rounds(device))
 
     # phase 9: timings. The paths again, warm, five times each: a single
     # warm call's time has varied by up to a fifth between runs
@@ -1729,28 +2035,36 @@ def main() -> int:
     n = o.shape[0]
     st0 = fused.init_state(o, d, torch.ones(n, device=device))
     rng0 = to_int32(rng).contiguous()
-    k1_ms = _timed(lambda: seg.segment(tables, env0, st0.clone(), rng0.clone(), n,
-                                       True, True, chunk), 5)
+    k1_ms, k1_times = _median_ms(lambda: seg.segment(tables, env0, st0.clone(),
+                                                     rng0.clone(), n, True, True, chunk))
     k1_plain_ms = _timed(lambda: seg._segment_plain(
         tables, env0, st0.clone(), rng0.clone(), n, True, True), 1)
-    k1_ms_b = _timed(lambda: seg.segment(tables, env0, st0.clone(), rng0.clone(),
-                                         n, True, True, chunk), 5)
+    k1_ms_b, _ = _median_ms(lambda: seg.segment(tables, env0, st0.clone(),
+                                                rng0.clone(), n, True, True, chunk))
     best_t = fused._trace_plain(tables[0], st0, 0.0)[0]
     # 14 planes in (13 state + rng), 14 out, 9 AOV planes out
     (k1_bound, k1_by), tri = path_bound(st0, n, 0.0, best_t, 14 + 14 + 9)
-    print(f"  K1 segment 0 at {n} rays: kernel {k1_ms:.3f} / {k1_ms_b:.3f} ms, "
+    print(f"  K1 segment 0 at {n} rays: kernel median of 5 {k1_ms:.3f} "
+          f"({', '.join(f'{t:.3f}' for t in k1_times)}) / {k1_ms_b:.3f} ms, "
           f"plain {k1_plain_ms:.3f} ms; {tri} triangle tests after culling, "
           f"bound {k1_bound:.4f} ms by {k1_by}")
+    k1_shapes = {"1080p segment 0": k1_shape(
+        (tables, env0, st0, rng0, n, True, True, chunk), k1_ms, k1_bound, k1_by,
+        best_t, "1080p segment 0")}
     st1, rng1 = st0.clone(), rng0.clone()
     seg.segment(tables, env0, st1, rng1, n, True, True, chunk)
     lo, inv_extent = seg._scene_bounds(tables[2])
     n1 = seg.reorder(st1, rng1, torch.arange(n, device=device), n, lo, inv_extent)
-    k1s1_ms = _timed(lambda: seg.segment(tables, env0, st1.clone(), rng1.clone(),
-                                         n1, False, True, chunk), 5)
+    k1s1_ms, times = _median_ms(lambda: seg.segment(tables, env0, st1.clone(),
+                                                    rng1.clone(), n1, False, True, chunk))
     best_t = fused._trace_plain(tables[0], st1[:, :n1], fused._BOUNCE_TMIN)[0]
     (k1s1_bound, by), tri = path_bound(st1, n1, fused._BOUNCE_TMIN, best_t, 28)
-    print(f"  K1 segment 1 at {n1} rays: kernel {k1s1_ms:.3f} ms; {tri} triangle "
+    print(f"  K1 segment 1 at {n1} rays: kernel median of 5 {k1s1_ms:.3f} "
+          f"({', '.join(f'{t:.3f}' for t in times)}) ms; {tri} triangle "
           f"tests after culling, bound {k1s1_bound:.4f} ms by {by}")
+    k1_shapes["1080p segment 1"] = k1_shape(
+        (tables, env0, st1, rng1, n1, False, True, chunk), k1s1_ms, k1s1_bound, by,
+        best_t, "1080p segment 1")
 
     _, env5, o, d, rng = _camera_pool(SMALL, SMALL, FRAMES, device)
     n5 = o.shape[0]
@@ -1815,8 +2129,8 @@ def main() -> int:
             ("closest", closest, k3c_out, k3c_plain_ms),
             ("any", shadow, k3a_out, k3a_plain_ms)):
         any_hit = key == "any"
-        ms = _timed(lambda: brute.trace_planes(tabs, planes, n, any_hit), 5)
-        ms_b = _timed(lambda: brute.trace_planes(tabs, planes, n, any_hit), 5)
+        ms, times = _median_ms(lambda: brute.trace_planes(tabs, planes, n, any_hit))
+        ms_b, _ = _median_ms(lambda: brute.trace_planes(tabs, planes, n, any_hit))
         occluded = out[1] >= 0
         # any-hit: occluded rays need at least one test, the others every
         # run they enter up to their tmax; closest: every run entered up
@@ -1826,10 +2140,16 @@ def main() -> int:
         if any_hit:
             tri += int(occluded.sum())
         b, by = bound(k3_rows + 4 * 12 * n, tri, cur)
-        k3[key] = (ms, plain_ms, b, by, n)
-        print(f"  K3 {key} at {n} rays: kernel {ms:.3f} / {ms_b:.3f} ms, plain "
+        print(f"  K3 {key} at {n} rays: kernel median of 5 {ms:.3f} "
+              f"({', '.join(f'{t:.3f}' for t in times)}) / {ms_b:.3f} ms, plain "
               f"{plain_ms:.3f} ms; {tri} triangle and {cur} curve tests after "
               f"culling, bound {b:.4f} ms by {by}")
+        _, *kernel = brute.trace_planes(tabs, planes, n, any_hit, stats=True)
+        p = [x[:n] for x in planes]
+        work = sweep_work(tabs, brute.TRI_CHUNK, (torch.stack(p[0:3], 1),
+                          torch.stack(p[3:6], 1), p[6], p[7], p[7] > p[6]), kernel,
+                          best_t, f"K3 {key}", "k3", any_hit)
+        k3[key] = (ms, plain_ms, b, by, n, work)
 
     # phase 10: small renders on the card against the same renders on the
     # CPU: the bench scene, and the strands scene under both lightings
@@ -1861,9 +2181,9 @@ def main() -> int:
     c6_err, c6_ms, c6_plain_ms, c6_bound, c6_by = canopy_phase(device, totals)
     f_err, f_ms, f_plain_ms, f_bound, f_by, f_rays = forest_phase(device, totals)
     # phases 13-16: config 6 (and config 7) on the LBVH walker, K5
-    k5 = lbvh_phase(device, totals)
+    k5, k1_c6 = lbvh_phase(device, totals)
     # phases 17-19: BASELINE config 4 (the illumination estimator) and K6
-    k6_err, k6 = illumination_phase(device, totals, render_1080p, frame, rays)
+    k6_err, k6, k1_c4 = illumination_phase(device, totals, render_1080p, frame, rays)
 
     def row(name, source, replaces, err, ms, plain_ms, bnd, by):
         return {"name": name, "route": "cuda",
@@ -1872,22 +2192,31 @@ def main() -> int:
                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": bnd, "bound_by": by, "library_ms": None}
 
+    k1_shapes["config 4 presorted segment 0"] = k1_c4[2]
+    k1_shapes["config 6 segment 0"] = k1_c6[2]
     print(json.dumps({"kernels": [
-        row("seg_segment_kernel", "path.cu",
-            "raytracerfacility_tpu/ops/pallas_seg.py:254", k1_err, k1_ms,
-            k1_plain_ms, k1_bound, k1_by),
+        dict(row("seg_segment_kernel", "path.cu",
+                 "raytracerfacility_tpu/ops/pallas_seg.py:254",
+                 max(k1_err, k1_c4[0], k1_c6[0]), k1_ms, k1_plain_ms, k1_bound,
+                 k1_by),
+             shape="1080p segment 0", shapes=k1_shapes,
+             ptxas=[ptxas.get(f"seg_segment_kernel<{b}>") for b in ("false", "true")]),
         row("fused_path_kernel", "path.cu",
             "raytracerfacility_tpu/ops/pallas_fused.py:217", k2_err, k2_ms,
             k2_plain_ms, k2_bound, k2_by),
         row("fused_sls_kernel", "path.cu",
             "raytracerfacility_tpu/ops/pallas_fused.py:424", k2s_err, k2s_ms,
             k2s_plain_ms, k2s_bound, k2s_by),
-        row("brute_trace_kernel<false>", "brute.cu",
-            "raytracerfacility_tpu/ops/pallas_brute.py:201", k3c_err,
-            *k3["closest"][:4]),
-        row("brute_trace_kernel<true>", "brute.cu",
-            "raytracerfacility_tpu/ops/pallas_brute.py:201", k3a_err,
-            *k3["any"][:4]),
+        dict(row("brute_trace_kernel<false>", "brute.cu",
+                 "raytracerfacility_tpu/ops/pallas_brute.py:201", k3c_err,
+                 *k3["closest"][:4]),
+             shape=f"config 7 segment 0, {k3['closest'][4]} rays",
+             work=k3["closest"][5], ptxas=ptxas.get("brute_trace_kernel<false, false>")),
+        dict(row("brute_trace_kernel<true>", "brute.cu",
+                 "raytracerfacility_tpu/ops/pallas_brute.py:201", k3a_err,
+                 *k3["any"][:4]),
+             shape=f"SLS config-7 shadow rays, {k3['any'][4]} lanes",
+             work=k3["any"][5], ptxas=ptxas.get("brute_trace_kernel<true, false>")),
         dict(row("inst_trace_kernel", "inst.cu",
                  "raytracerfacility_tpu/ops/pallas_inst.py:248", max(c6_err, f_err),
                  f_ms, f_plain_ms, f_bound, f_by),

@@ -1,6 +1,6 @@
-// The wavefront trace kernel K3, one thread per ray, with a plain C
-// interface for ctypes (raytracerfacility_tpu_torch/kernels.py builds and
-// loads it; ops/brute.py::trace_planes launches it).
+// The wavefront trace kernel K3 with a plain C interface for ctypes
+// (raytracerfacility_tpu_torch/kernels.py builds and loads it;
+// ops/brute.py::trace_planes launches it).
 //
 // brute_trace_kernel<any_hit> replaces raytracerfacility_tpu/ops/
 // pallas_brute.py:201 _make_kernel(any_hit): closest hit (t, prim, u, v) or
@@ -11,20 +11,22 @@
 // any visit order.
 //
 // Bound on this card by the rows each ray tests after culling: 48 bytes and
-// about 40 flops a triangle, about 90 a curve segment (a quadratic for the
-// cone body and two sphere caps). The rows a warp's rays share come from
-// L1/L2 (config 7's table is 233 KB). Each thread culls with its own best t
-// against the 256-row chunk and 32-row run boxes, first the chunk, so a
-// ray pays only for the runs its own slab enters (the TPU kernel culls per
-// 8192-ray tile in a prefetched chunk order, which a per-ray cull makes
-// unnecessary). Runs are kind-homogeneous, so the test is chosen once per
-// run, not per row. Any-hit returns at the first accepted row. Launched
+// 55 operations a triangle, 137 a curve segment (a quadratic for the cone
+// body and two sphere caps), and a warp pays for the union of its lanes'
+// rows. The sweep is sweep.cuh's: the warp visits the 256-row chunks its
+// lanes enter front to back by their least entry, so near hits cull the
+// far chunks and 32-row runs for the whole warp, as the TPU kernel's
+// per-tile chunk order does; ballots skip what no lane enters; a run few
+// lanes enter is tested as (ray, row) pairs over the whole warp; rows load
+// as three float4. Runs are kind-homogeneous, so the test is chosen once
+// per run. An any-hit lane leaves the sweep at its first accepted row. Launched
 // over the live prefix of the wavefront engine's compacted pool, reading
 // its state planes in place.
 
 #include <cuda_runtime.h>
 
 #include "path_common.cuh"
+#include "sweep.cuh"
 
 namespace rtf {
 
@@ -38,65 +40,92 @@ struct TraceTable {
   int nchunks, chunk, sub;
 };
 
-// One ray's sweep over the table. Closest hit keeps the lexicographic
-// (t, id) minimum in (tmin, tmax); any-hit returns at the first accept
-// with t = kDead, as the TPU kernel poisons its best t.
-template <bool kAnyHit>
-__device__ __forceinline__ void sweep(const TraceTable& s, float ox, float oy,
-                                      float oz, float dx, float dy, float dz,
-                                      float tmin, float& bt, float& bid,
-                                      float& bu, float& bv) {
-  const float ivx = inv_dir(dx), ivy = inv_dir(dy), ivz = inv_dir(dz);
-  const int runs = s.chunk / s.sub;
-  for (int c = 0; c < s.nchunks; ++c) {
-    if (!slab(s.chunks + c * kBox, ox, oy, oz, ivx, ivy, ivz, tmin, bt))
-      continue;
-    for (int r = c * runs; r < (c + 1) * runs; ++r) {
-      const float* box = s.subs + r * kBox;
-      if (!slab(box, ox, oy, oz, ivx, ivy, ivz, tmin, bt)) continue;
-      const bool curves = box[6] >= 0.5f;
-      const float* row = s.rows + (size_t)r * s.sub * kBruteCols;
-      for (int k = 0; k < s.sub; ++k, row += kBruteCols) {
-        float t, u, v = 0.0f;
-        const bool ok =
-            curves ? curve_test(row, ox, oy, oz, dx, dy, dz, tmin, t, u) &&
-                         row[6] >= 0.0f  // curve pad rows carry r0 = -1
-                   : tri_test(row, ox, oy, oz, dx, dy, dz, tmin, t, u, v);
-        const float jf = row[9];
-        if (ok && (t < bt || (t == bt && jf < bid))) {
-          bid = jf;
-          if (kAnyHit) {
-            bt = kDead;
-            return;
-          }
-          bt = t;
-          bu = u;
-          bv = v;
-        }
-      }
+// The best hit of a K3 lane: closest keeps the lexicographic (t, id)
+// minimum in (tmin, tmax); any-hit stops at the first accept with
+// t = kDead, as the TPU kernel poisons its best t.
+struct BruteBest {
+  float t, id, u, v;
+};
+
+// K3's rows: 12 columns, three float4 a row; a run of kind >= 0.5 holds
+// curve segments (pad rows carry r0 = -1, which the guard rejects).
+struct BruteRows {
+  const float* rows;
+  using Best = BruteBest;
+  __device__ static float id(const BruteBest& b) { return b.id; }
+  __device__ __forceinline__ bool probe(int row, float kind, const SweepRay& r,
+                                        float& t, float& u, float& v,
+                                        float& jf) const {
+    float f[kBruteCols];
+    load_row(rows + (size_t)row * kBruteCols, f);
+    jf = f[9];
+    v = 0.0f;
+    return kind >= 0.5f
+               ? curve_test(f, r.ox, r.oy, r.oz, r.dx, r.dy, r.dz, r.tmin, t, u) &&
+                     f[6] >= 0.0f
+               : tri_test(f, r.ox, r.oy, r.oz, r.dx, r.dy, r.dz, r.tmin, t, u, v);
+  }
+  template <bool kAnyHit>
+  __device__ __forceinline__ void take(int, float t, float u, float v,
+                                       float jf, BruteBest& b) const {
+    b.id = jf;
+    if (kAnyHit) {
+      b.t = kDead;
+    } else {
+      b.t = t;
+      b.u = u;
+      b.v = v;
     }
   }
-}
+};
 
 // planes o/d/tmin/tmax: (n,) each; out: (4, n) planes t, prim, u, v
-// (t = tmax and prim = -1 on a miss).
-template <bool kAnyHit>
+// (t = tmax and prim = -1 on a miss). A lane whose window is empty
+// (tmax <= tmin, DEAD among them) cannot hit and takes no part in the
+// sweep. stats: (kStatPlanes, n) and warp_rows: (ceil(n / 32),), written
+// with kStats. Dynamic shared memory: sweep_smem(s.nchunks).
+template <bool kAnyHit, bool kStats>
 __global__ void __launch_bounds__(kThreads)
 brute_trace_kernel(const float* __restrict__ ox, const float* __restrict__ oy,
                    const float* __restrict__ oz, const float* __restrict__ dx,
                    const float* __restrict__ dy, const float* __restrict__ dz,
                    const float* __restrict__ tmin,
                    const float* __restrict__ tmax, float* __restrict__ out,
-                   TraceTable s, int n) {
+                   TraceTable s, int n, int* __restrict__ stats,
+                   int* __restrict__ warp_rows) {
+  extern __shared__ uint32_t sweep_lists[];
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  float bt = tmax[i], bid = -1.0f, bu = 0.0f, bv = 0.0f;
-  sweep<kAnyHit>(s, ox[i], oy[i], oz[i], dx[i], dy[i], dz[i], tmin[i], bt, bid,
-                 bu, bv);
-  out[0 * n + i] = bt;
-  out[1 * n + i] = bid;
-  out[2 * n + i] = bu;
-  out[3 * n + i] = bv;
+  const bool in = i < n;
+  const float t0 = in ? tmin[i] : 0.0f;
+  BruteBest b{in ? tmax[i] : kDead, -1.0f, 0.0f, 0.0f};
+  const SweepRay ray = make_ray(in ? ox[i] : 0.0f, in ? oy[i] : 0.0f,
+                                in ? oz[i] : 0.0f, in ? dx[i] : 0.0f,
+                                in ? dy[i] : 0.0f, in ? dz[i] : 0.0f, t0);
+  SweepStats ss = {};
+  const Boxes bx{s.subs, s.chunks, s.nchunks, s.chunk / s.sub, s.sub};
+  warp_sweep<BruteRows, kAnyHit, kStats>(
+      BruteRows{s.rows}, bx, ray, in && b.t > t0, b,
+      sweep_lists + (threadIdx.x >> 5) * sweep_list(s.nchunks), ss);
+  if (!in) return;  // after the last warp operation
+  if (kStats) store_stats(ss, stats, warp_rows, n, i);
+  out[0 * n + i] = b.t;
+  out[1 * n + i] = b.id;
+  out[2 * n + i] = b.u;
+  out[3 * n + i] = b.v;
+}
+
+template <bool kAnyHit, bool kStats>
+int launch_brute(const float* const* planes, float* out, const TraceTable& s,
+                 int n, int* stats, int* warp_rows, cudaStream_t stream) {
+  const int blocks = (n + kThreads - 1) / kThreads;
+  const size_t smem = sweep_smem(s.nchunks);
+  auto kernel = brute_trace_kernel<kAnyHit, kStats>;
+  const cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<blocks, kThreads, smem, stream>>>(
+      planes[0], planes[1], planes[2], planes[3], planes[4], planes[5],
+      planes[6], planes[7], out, s, n, stats, warp_rows);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace rtf
@@ -107,18 +136,22 @@ int rtf_brute_trace(const void* ox, const void* oy, const void* oz,
                     const void* dx, const void* dy, const void* dz,
                     const void* tmin, const void* tmax, void* out,
                     const void* rows, const void* subs, const void* chunks,
-                    int n, int nchunks, int chunk, int sub, int any_hit,
-                    void* stream) {
+                    void* stats, void* warp_rows, int n, int nchunks,
+                    int chunk, int sub, int any_hit, void* stream) {
   const rtf::TraceTable s{(const float*)rows, (const float*)subs,
                           (const float*)chunks, nchunks, chunk, sub};
-  const int blocks = (n + rtf::kThreads - 1) / rtf::kThreads;
-  auto launch = any_hit ? rtf::brute_trace_kernel<true>
-                        : rtf::brute_trace_kernel<false>;
-  launch<<<blocks, rtf::kThreads, 0, (cudaStream_t)stream>>>(
-      (const float*)ox, (const float*)oy, (const float*)oz, (const float*)dx,
-      (const float*)dy, (const float*)dz, (const float*)tmin,
-      (const float*)tmax, (float*)out, s, n);
-  return (int)cudaGetLastError();
+  const float* planes[8] = {(const float*)ox, (const float*)oy,
+                            (const float*)oz, (const float*)dx,
+                            (const float*)dy, (const float*)dz,
+                            (const float*)tmin, (const float*)tmax};
+  int* st = (int*)stats;
+  int* wr = (int*)warp_rows;
+  cudaStream_t q = (cudaStream_t)stream;
+  if (any_hit)
+    return st ? rtf::launch_brute<true, true>(planes, (float*)out, s, n, st, wr, q)
+              : rtf::launch_brute<true, false>(planes, (float*)out, s, n, st, wr, q);
+  return st ? rtf::launch_brute<false, true>(planes, (float*)out, s, n, st, wr, q)
+            : rtf::launch_brute<false, false>(planes, (float*)out, s, n, st, wr, q);
 }
 
 const char* rtf_error_string(int err) {

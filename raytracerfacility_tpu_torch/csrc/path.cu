@@ -1,9 +1,16 @@
-// The camera path kernels, one thread per ray, with a plain C interface
-// for ctypes (raytracerfacility_tpu_torch/kernels.py builds and loads it).
+// The camera path kernels with a plain C interface for ctypes
+// (raytracerfacility_tpu_torch/kernels.py builds and loads it).
 //
 // seg_segment_kernel (K1) replaces raytracerfacility_tpu/ops/pallas_seg.py:254
 // _kernel: one trace+shade segment over SoA path state in device memory,
-// updated in place, launched over the live prefix of a reordered pool.
+// updated in place, launched over the live prefix of a reordered pool. Its
+// trace is the warp's front-to-back sweep of sweep.cuh: the keys of the
+// chunks the warp enters, then visits in key order with per-lane chunk and
+// 16-row sub-run culls against each lane's own best t, ballot skips of
+// what no lane enters, (ray, row) pairs over the warp for runs few lanes
+// enter, and rows read as float4. A dead ray (or a lane
+// past n) takes part in the warp's sweep with nothing entered and leaves
+// its state untouched.
 //
 // fused_path_kernel (K2) replaces raytracerfacility_tpu/ops/pallas_fused.py:217
 // _kernel (Scene lighting): every segment of a ray in one thread, the path
@@ -14,17 +21,18 @@
 // TPU kernel (pallas_fused.py:424-639): the camera segment's trace, the sun
 // cone sample, an any-hit shadow ray from the hit point (one thread walks
 // its own shadow ray right after its closest hit, with its own chunk and
-// sub-run culling) and the ambient + sun shade; outputs as K2's.
+// sub-run culling) and the ambient + sun shade; outputs as K2's. K2 and
+// K2-SLS keep the one-thread-a-ray index-order trace of path_common.cuh.
 //
-// All are bound by the table rows a ray loads while it traverses (80 bytes
-// and about 40 flops per triangle visited, served from L1/L2 when a warp's
-// rays visit the same rows). Per-ray chunk and 16-row sub-run culling keeps
-// a ray from paying for its neighbours' boxes. Shared-memory staging of
-// chunks, warp-level traversal and tensor-core work are left for later.
+// All are bound by the table rows a ray tests while it traverses (80 bytes
+// and about 55 operations per triangle), and a warp pays for the union of
+// its rays' rows: K1's warp order lets near hits cull the far chunks
+// for the whole warp.
 
 #include <cuda_runtime.h>
 
 #include "path_common.cuh"
+#include "sweep.cuh"
 
 namespace rtf {
 
@@ -41,18 +49,75 @@ __device__ __forceinline__ void store_aov(float* aov, int stride, int i,
   aov[8 * stride + i] = a.pz;
 }
 
+// K1's rows: the 20-column triangle table. A test reads the first three
+// float4 (v0, e1, e2, id, n0.xy); the normal and material columns are
+// read only for an accepted row.
+struct TriRows20 {
+  const float* rows;
+  using Best = Hit;
+  __device__ static float id(const Hit& h) { return h.pid; }
+  __device__ __forceinline__ bool probe(int row, float, const SweepRay& r,
+                                        float& t, float& u, float& v,
+                                        float& jf) const {
+    float f[12];
+    load_row(rows + (size_t)row * kCols, f);
+    jf = f[9];
+    return tri_test(f, r.ox, r.oy, r.oz, r.dx, r.dy, r.dz, r.tmin, t, u, v);
+  }
+  template <bool kAnyHit>
+  __device__ __forceinline__ void take(int row, float t, float u, float v,
+                                       float jf, Hit& h) const {
+    float g[12];  // columns 8-19: e2.z, id, n0, dn1, dn2, material
+    load_row(rows + (size_t)row * kCols + 8, g);
+    h.t = t;
+    h.nx = g[2] + u * g[5] + v * g[8];
+    h.ny = g[3] + u * g[6] + v * g[9];
+    h.nz = g[4] + u * g[7] + v * g[10];
+    h.mid = g[11];
+    h.pid = jf;
+  }
+};
+
 // st: (NPLANES, stride) float planes, rng: (stride,) path RNG states, both
 // updated in place for rays [0, n). aov: (9, n) planes, written when `first`.
+// stats: (kStatPlanes, n) and warp_rows: (ceil(n / 32),), written with
+// kStats. Dynamic shared memory: sweep_smem(s.nchunks).
+template <bool kStats>
 __global__ void __launch_bounds__(kThreads)
 seg_segment_kernel(float* __restrict__ st, int* __restrict__ rng,
                    float* __restrict__ aov, Scene s,
                    const float* __restrict__ env, int n, int stride,
-                   int first, int has_cont) {
+                   int first, int has_cont, int* __restrict__ stats,
+                   int* __restrict__ warp_rows) {
+  extern __shared__ uint32_t sweep_lists[];
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
   Path p;
-  p.act = st[ACT * stride + i];
-  if (!(p.act > 0.0f)) {  // dead ray: state unchanged, no-hit AOVs
+  p.act = i < n ? st[ACT * stride + i] : 0.0f;
+  const bool live = p.act > 0.0f;
+  p.ox = p.oy = p.oz = p.dx = p.dy = p.dz = 0.0f;
+  if (live) {
+    p.ox = st[OX * stride + i];
+    p.oy = st[OY * stride + i];
+    p.oz = st[OZ * stride + i];
+    p.dx = st[DX * stride + i];
+    p.dy = st[DY * stride + i];
+    p.dz = st[DZ * stride + i];
+  }
+  Hit h;
+  h.t = kTMax;
+  h.nx = h.ny = h.nz = 0.0f;
+  h.mid = 0.0f;
+  h.pid = kNoId;
+  SweepStats ss = {};
+  const SweepRay ray = make_ray(p.ox, p.oy, p.oz, p.dx, p.dy, p.dz,
+                                first ? env[10] : kBounceTMin);
+  const Boxes bx{s.subs, s.chunks, s.nchunks, s.chunk / s.sub, s.sub};
+  warp_sweep<TriRows20, false, kStats>(
+      TriRows20{s.tris}, bx, ray, live, h,
+      sweep_lists + (threadIdx.x >> 5) * sweep_list(s.nchunks), ss);
+  if (i >= n) return;  // after the last warp operation
+  if (kStats) store_stats(ss, stats, warp_rows, n, i);
+  if (!live) {  // dead ray: state unchanged, no-hit AOVs
     if (first) {
       Aov a;
       no_hit_aov(a, 0.0f, 0.0f, 0.0f);
@@ -60,12 +125,6 @@ seg_segment_kernel(float* __restrict__ st, int* __restrict__ rng,
     }
     return;
   }
-  p.ox = st[OX * stride + i];
-  p.oy = st[OY * stride + i];
-  p.oz = st[OZ * stride + i];
-  p.dx = st[DX * stride + i];
-  p.dy = st[DY * stride + i];
-  p.dz = st[DZ * stride + i];
   p.tr = st[TR * stride + i];
   p.tg = st[TG * stride + i];
   p.tb = st[TB * stride + i];
@@ -74,8 +133,6 @@ seg_segment_kernel(float* __restrict__ st, int* __restrict__ rng,
   p.rb = st[RB * stride + i];
   p.rng = (uint32_t)rng[i];
 
-  Hit h;
-  trace(s, p, first ? env[10] : kBounceTMin, h);
   Aov a;
   shade(s, env, p, h, first != 0, has_cont != 0, a);
 
@@ -190,15 +247,21 @@ extern "C" {
 
 int rtf_seg_segment(void* st, void* rng, void* aov, const void* tris,
                     const void* subs, const void* chunks, const void* mats,
-                    const void* env, int n, int stride, int nchunks, int chunk,
-                    int sub, int first, int has_cont, void* stream) {
+                    const void* env, void* stats, void* warp_rows, int n,
+                    int stride, int nchunks, int chunk, int sub, int first,
+                    int has_cont, void* stream) {
   const rtf::Scene s{(const float*)tris, (const float*)subs,
                      (const float*)chunks, (const float*)mats, nchunks, chunk,
                      sub};
   const int blocks = (n + rtf::kThreads - 1) / rtf::kThreads;
-  rtf::seg_segment_kernel<<<blocks, rtf::kThreads, 0, (cudaStream_t)stream>>>(
+  const size_t smem = rtf::sweep_smem(nchunks);
+  auto launch = stats ? rtf::seg_segment_kernel<true>
+                      : rtf::seg_segment_kernel<false>;
+  const cudaError_t err = rtf::allow_smem(launch, smem);
+  if (err != cudaSuccess) return (int)err;
+  launch<<<blocks, rtf::kThreads, smem, (cudaStream_t)stream>>>(
       (float*)st, (int*)rng, (float*)aov, s, (const float*)env, n, stride,
-      first, has_cont);
+      first, has_cont, (int*)stats, (int*)warp_rows);
   return (int)cudaGetLastError();
 }
 

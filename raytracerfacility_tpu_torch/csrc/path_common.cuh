@@ -1,7 +1,7 @@
-// Per-ray trace and Default-material shade shared by the two path kernels
-// in path.cu (one thread per ray); the inverse direction, Moller-Trumbore
-// and the sphere-swept segment test are also K3's (brute.cu) and K5's
-// (bvh.cu).
+// Per-ray trace of K2 and K2-SLS and the Default-material shade of the
+// three path kernels in path.cu (K1 traces with sweep.cuh); the inverse
+// direction, Moller-Trumbore and the sphere-swept segment test are also
+// K3's (brute.cu) and K5's (bvh.cu).
 //
 // Ports the math of raytracerfacility_tpu/ops/pallas_seg.py:254 _kernel
 // and raytracerfacility_tpu/ops/pallas_fused.py:217 _kernel (Scene

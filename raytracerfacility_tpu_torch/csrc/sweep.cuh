@@ -1,0 +1,307 @@
+// The warp-cooperative front-to-back sweep over a Morton-packed primitive
+// table, shared by K1 (path.cu seg_segment_kernel, 20-column triangle rows)
+// and K3 (brute.cu brute_trace_kernel, 12-column triangle and curve rows).
+// ops/sweep.py emulates it step for step (order "warp"), counters included.
+//
+// The TPU kernels these replace (pallas_seg.py:254, pallas_brute.py:201)
+// visit a tile's chunks front to back (ops/chunk_order.py), so near hits
+// shrink the best t early and the box culls drop most of the far scene.
+// Here the warp is the unit that pays for the union of its rays' work, so
+// the order is the warp's:
+//
+// 1. Keys. Every live lane tests the slab of every chunk at its initial
+//    best t. A chunk's key is the least entry max(near, tmin) over the
+//    lanes that enter it (a warp min on orderable float bits). Entered
+//    chunks go to the warp's list in shared memory as one word each: the
+//    key's high bits over the chunk index, so an unsigned compare orders
+//    by key, then by index.
+// 2. Visits. The warp takes the least word left (each lane scans its
+//    slice of the list, then a warp min) until the list is empty or the
+//    next key is past every live lane's best t. Each lane re-tests the
+//    chunk's slab against its own current best t; a chunk, then a run,
+//    that no lane enters is skipped by a ballot without touching its
+//    rows. When more than kPairLanes lanes enter a run, each tests the
+//    run's rows for its own ray; when fewer do, the warp spreads their
+//    (ray, row) pairs over all 32 lanes (the ray fetched by shuffles) and
+//    reduces each ray's rows to its least (t, id), or any-hit to its first
+//    accepted row, so an incoherent warp pays ceil(lanes x rows / 32)
+//    iterations for a run instead of its rows. Rows load as 16-byte
+//    vectors.
+//
+// Every cull compares near - |near| * kCullPad <= best t (and <= far): a
+// grazing sphere-cap hit can round to before its run box's entry (the
+// cap's sqrt of a discriminant near 0 turns float32 rounding into up to
+// about sqrt(8 eps) |o - p0| = 7e-4 |o - p0| of t), and an unpadded cull
+// skipped such a run on 3 config-7 rays. Culling less only adds work; the
+// result is the lexicographic (t, original id) minimum over accepted rows
+// in any visit order, which a row test decides alone.
+//
+// With kStats a lane counts chunk slabs tested, chunks entered, run slabs
+// tested, runs entered and rows tested (an any-hit lane on its own stops
+// at its accept), and lane 0 the row iterations its warp executed. A lane that is not live (out of range, dead path, empty
+// window, or an any-hit lane that has its hit) takes part in every warp
+// operation and enters nothing.
+#pragma once
+
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+#include "path_common.cuh"
+
+namespace rtf {
+
+constexpr float kCullPad = 1.0f / 512.0f;
+constexpr unsigned kFullMask = 0xffffffffu;
+constexpr uint32_t kNoWord = 0xffffffffu;
+constexpr int kStatPlanes = 5;  // ops/sweep.py STATS
+// list words a warp: a table of more chunks is swept in rounds, each
+// keying and visiting the next kListCap chunks the warp enters
+constexpr int kListCap = 1024;  // ops/sweep.py LIST_CAP
+// a run at most this many lanes enter is tested as (ray, row) pairs
+// spread over the warp's lanes instead of one lane a ray
+constexpr int kPairLanes = 16;  // ops/sweep.py PAIR_LANES
+struct SweepRay {
+  float ox, oy, oz, dx, dy, dz, ivx, ivy, ivz, tmin;
+};
+
+__device__ __forceinline__ SweepRay make_ray(float ox, float oy, float oz,
+                                             float dx, float dy, float dz,
+                                             float tmin) {
+  return SweepRay{ox, oy, oz, dx, dy, dz, inv_dir(dx), inv_dir(dy),
+                  inv_dir(dz), tmin};
+}
+
+// Unsigned bits of x that order as the floats do (x not NaN).
+__device__ __forceinline__ uint32_t ord_bits(float x) {
+  const uint32_t b = __float_as_uint(x);
+  return (b & 0x80000000u) ? ~b : (b | 0x80000000u);
+}
+
+// Padded slab test of box row b (lo xyz, hi xyz, kind, pad: two float4).
+// Returns whether the ray enters before bt; near is the padded entry.
+__device__ __forceinline__ bool slab_pad(const float* b, const SweepRay& r,
+                                         float bt, float& near) {
+  const float4 lo = __ldg(reinterpret_cast<const float4*>(b));
+  const float4 hi = __ldg(reinterpret_cast<const float4*>(b) + 1);
+  const float t1x = (lo.x - r.ox) * r.ivx;
+  const float t2x = (lo.w - r.ox) * r.ivx;
+  const float t1y = (lo.y - r.oy) * r.ivy;
+  const float t2y = (hi.x - r.oy) * r.ivy;
+  const float t1z = (lo.z - r.oz) * r.ivz;
+  const float t2z = (hi.y - r.oz) * r.ivz;
+  const float n0 = fmaxf(fmaxf(fminf(t1x, t2x), fminf(t1y, t2y)),
+                         fminf(t1z, t2z));
+  const float far = fminf(fminf(fmaxf(t1x, t2x), fmaxf(t1y, t2y)),
+                          fmaxf(t1z, t2z));
+  near = n0 - fabsf(n0) * kCullPad;
+  return near <= far && far > r.tmin && near <= bt;
+}
+
+template <int kC>
+__device__ __forceinline__ void load_row(const float* p, float (&f)[kC]) {
+  static_assert(kC % 4 == 0, "rows are whole float4");
+  const float4* v = reinterpret_cast<const float4*>(p);
+#pragma unroll
+  for (int q = 0; q < kC / 4; ++q) {
+    const float4 x = __ldg(v + q);
+    f[4 * q] = x.x;
+    f[4 * q + 1] = x.y;
+    f[4 * q + 2] = x.z;
+    f[4 * q + 3] = x.w;
+  }
+}
+
+// The boxes of a sweep's table. Its rows come as a Rows type with a Best
+// (whose field t is the lane's best t) and test<kAnyHit>(row, run kind,
+// ray, best), which tests one row, updates best and returns whether the
+// row was accepted.
+struct Boxes {
+  const float* subs;    // (rows / sub, kBox)
+  const float* chunks;  // (>= nchunks, kBox)
+  int nchunks, runs, sub;  // chunks, runs a chunk, rows a run
+};
+
+// Per-lane counters of a kStats sweep (ops/sweep.py STATS order).
+struct SweepStats {
+  int v[kStatPlanes];
+  int warp_rows;
+};
+
+// list: this warp's kListCap words of shared memory (fewer when the
+// table has fewer chunks).
+template <class Rows, bool kAnyHit, bool kStats>
+__device__ __forceinline__ void warp_sweep(const Rows& rows, const Boxes& bx,
+                                           const SweepRay& ray, bool live,
+                                           typename Rows::Best& best,
+                                           uint32_t* list, SweepStats& st) {
+  const int lane = threadIdx.x & 31;
+  const int bits = bx.nchunks > 1 ? 32 - __clz(bx.nchunks - 1) : 0;
+  const uint32_t low = (1u << bits) - 1u;
+  // a run's rows pack whole into lanes when bx.sub is a power of two <= 32
+  const bool pairs_fit = bx.sub <= 32 && (bx.sub & (bx.sub - 1)) == 0;
+  const int shift = __ffs(bx.sub) - 1;
+  const float inf = __int_as_float(0x7f800000);
+  for (int c0 = 0; c0 < bx.nchunks && __any_sync(kFullMask, live);) {
+    // 1. keys of the next chunks the warp enters, at each lane's current
+    // best t, until the list holds kListCap of them
+    int count = 0;
+    int c = c0;
+    for (; c < bx.nchunks && count < kListCap; ++c) {
+      float near;
+      const bool in = live && slab_pad(bx.chunks + c * kBox, ray, best.t, near);
+      if (!__any_sync(kFullMask, in)) continue;
+      // + 0: a -0 entry keys as +0, whatever fmaxf returns for signed zeros
+      const uint32_t key = in ? ord_bits(fmaxf(near, ray.tmin) + 0.0f) : kNoWord;
+      const uint32_t least = __reduce_min_sync(kFullMask, key);
+      if (lane == 0) list[count] = ((least >> bits) << bits) | (uint32_t)c;
+      ++count;
+    }
+    if (kStats && live) st.v[0] += c - c0;
+    c0 = c;
+    __syncwarp();
+    // 2. visits, least key first
+    for (;;) {
+      uint32_t mine = kNoWord;
+      int at = -1;
+      for (int j = lane; j < count; j += 32) {
+        const uint32_t w = list[j];
+        if (w < mine) {
+          mine = w;
+          at = j;
+        }
+      }
+      const uint32_t word = __reduce_min_sync(kFullMask, mine);
+      if (word == kNoWord) break;
+      const uint32_t reach =
+          __reduce_max_sync(kFullMask, live ? ord_bits(best.t) : 0u);
+      if ((word >> bits) > (reach >> bits)) break;
+      if (mine == word) list[at] = kNoWord;
+      __syncwarp();
+      const int c = (int)(word & low);
+      float near;
+      bool in_chunk = live && slab_pad(bx.chunks + c * kBox, ray, best.t, near);
+      if (kStats && live) {
+        ++st.v[0];
+        st.v[1] += in_chunk;
+      }
+      if (__ballot_sync(kFullMask, in_chunk) == 0u) continue;
+      for (int r = c * bx.runs; r < (c + 1) * bx.runs; ++r) {
+        const float* box = bx.subs + r * kBox;
+        bool in_run = in_chunk && slab_pad(box, ray, best.t, near);
+        if (kStats && in_chunk) {
+          ++st.v[2];
+          st.v[3] += in_run;
+        }
+        const uint32_t m = __ballot_sync(kFullMask, in_run);
+        if (m == 0u) continue;
+        const float kind = box[6];
+        const int k = __popc(m);
+        if (pairs_fit && k <= kPairLanes) {
+          // few lanes entered: the warp's lanes share their (ray, row) pairs
+          const int pairs = k << shift;
+          const int first = __popc(m & ((1u << lane) - 1u)) << shift;
+          if (kStats && in_run) st.v[4] += bx.sub;
+          for (int p0 = 0; p0 < pairs; p0 += 32) {
+            if (kStats && lane == 0) ++st.warp_rows;
+            const int p = p0 + lane;
+            const int src = __fns(m, 0, (p < pairs ? p >> shift : 0) + 1);
+            const int pos = p & (bx.sub - 1);
+            SweepRay q = ray;
+            q.ox = __shfl_sync(kFullMask, ray.ox, src);
+            q.oy = __shfl_sync(kFullMask, ray.oy, src);
+            q.oz = __shfl_sync(kFullMask, ray.oz, src);
+            q.dx = __shfl_sync(kFullMask, ray.dx, src);
+            q.dy = __shfl_sync(kFullMask, ray.dy, src);
+            q.dz = __shfl_sync(kFullMask, ray.dz, src);
+            q.tmin = __shfl_sync(kFullMask, ray.tmin, src);
+            float t = 0.0f, u = 0.0f, v = 0.0f, jf = 0.0f;
+            bool ok = p < pairs && rows.probe(r * bx.sub + pos, kind, q, t, u, v, jf);
+            if (kAnyHit) {
+              const float bt = __shfl_sync(kFullMask, best.t, src);
+              const float bid = __shfl_sync(kFullMask, Rows::id(best), src);
+              ok = ok && (t < bt || (t == bt && jf < bid));
+            }
+            // the least row of each ray's group of bx.sub lanes: closest
+            // hit by (t, id), any-hit by position (its first accept)
+            float kt = ok ? (kAnyHit ? (float)pos : t) : inf;
+            float kj = ok ? jf : inf;
+            float ku = u, kv = v;
+            int kp = pos;
+            for (int off = bx.sub >> 1; off > 0; off >>= 1) {
+              const float ot = __shfl_xor_sync(kFullMask, kt, off);
+              const float oj = __shfl_xor_sync(kFullMask, kj, off);
+              const float ou = __shfl_xor_sync(kFullMask, ku, off);
+              const float ov = __shfl_xor_sync(kFullMask, kv, off);
+              const int op = __shfl_xor_sync(kFullMask, kp, off);
+              if (ot < kt || (ot == kt && oj < kj)) {
+                kt = ot;
+                kj = oj;
+                ku = ou;
+                kv = ov;
+                kp = op;
+              }
+            }
+            // each entering lane reads its group's least row
+            const bool owns = in_run && first >= p0 && first < p0 + 32;
+            const int from = owns ? first - p0 : lane;
+            const float gt = __shfl_sync(kFullMask, kt, from);
+            const float gj = __shfl_sync(kFullMask, kj, from);
+            const float gu = __shfl_sync(kFullMask, ku, from);
+            const float gv = __shfl_sync(kFullMask, kv, from);
+            const int gp = __shfl_sync(kFullMask, kp, from);
+            if (owns && gj != inf) {
+              if (kAnyHit) {
+                rows.template take<true>(r * bx.sub + gp, gt, gu, gv, gj, best);
+                in_run = in_chunk = live = false;
+              } else if (gt < best.t || (gt == best.t && gj < Rows::id(best))) {
+                rows.template take<false>(r * bx.sub + gp, gt, gu, gv, gj, best);
+              }
+            }
+          }
+          continue;
+        }
+        for (int j = 0; j < bx.sub; ++j) {
+          if (kStats && lane == 0) ++st.warp_rows;
+          if (!in_run) continue;
+          if (kStats) ++st.v[4];
+          float t, u, v, jf;
+          if (rows.probe(r * bx.sub + j, kind, ray, t, u, v, jf) &&
+              (t < best.t || (t == best.t && jf < Rows::id(best)))) {
+            rows.template take<kAnyHit>(r * bx.sub + j, t, u, v, jf, best);
+            if (kAnyHit) in_run = in_chunk = live = false;
+          }
+        }
+      }
+    }
+    __syncwarp();
+  }
+}
+
+// Writes a kStats sweep's counters: stats (kStatPlanes, n) per ray,
+// warp_rows (ceil(n / 32),) per warp (lane 0 writes; call for i < n).
+__device__ __forceinline__ void store_stats(const SweepStats& st, int* stats,
+                                            int* warp_rows, int n, int i) {
+#pragma unroll
+  for (int q = 0; q < kStatPlanes; ++q) stats[q * n + i] = st.v[q];
+  if ((threadIdx.x & 31) == 0) warp_rows[i >> 5] = st.warp_rows;
+}
+
+// Words of a warp's list, and the shared memory of a sweep block.
+__host__ __device__ inline int sweep_list(int nchunks) {
+  return nchunks < kListCap ? nchunks : kListCap;
+}
+inline size_t sweep_smem(int nchunks) {
+  return (size_t)(kThreads / 32) * (size_t)sweep_list(nchunks) * sizeof(uint32_t);
+}
+
+// Lets `kernel` take `smem` bytes of dynamic shared memory (above the
+// 48 KB default only on request; at most 227 KB a block).
+template <class K>
+inline cudaError_t allow_smem(K* kernel, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)smem);
+}
+
+}  // namespace rtf

@@ -4,8 +4,9 @@ The sources under ``csrc/`` have a plain C interface. Each ``.cu`` file is
 compiled by its own ``nvcc`` at first use into a shared library in
 ``build/rtf_torch/`` at the repository root (route (b): no PyTorch
 headers, a few seconds each), all of them started together, then loaded
-with ``ctypes``. A library's file name carries a hash of its sources and
-the flags, so an edited source is rebuilt. Nothing here runs at import
+with ``ctypes``. A library's file name carries a hash of the flags and of
+every file under ``csrc/`` (names and bytes), so an edited source or
+header is rebuilt. Nothing here runs at import
 time, so the CPU-only tests can import every module.
 
 Flags: ``-fmad=false`` keeps ``a*b+c`` as a rounded multiply and a rounded
@@ -29,7 +30,6 @@ import subprocess
 import time
 
 _CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
-_COMMON = "path_common.cuh"
 # library name -> source file
 SOURCES = {"path": "path.cu", "brute": "brute.cu", "inst": "inst.cu",
            "bvh": "bvh.cu", "perm": "perm.cu"}
@@ -68,9 +68,12 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> pathlib.Path:
+    """The library file of ``name``: its name hashes the flags and every
+    file under ``csrc/``, so a header that no hash named cannot go stale."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for source in (_COMMON, SOURCES[name]):
-        h.update((_CSRC / source).read_bytes())
+    for path in sorted(p for p in _CSRC.iterdir() if p.is_file()):
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
     return BUILD_DIR / f"librtf_{name}_{h.hexdigest()[:16]}.so"
 
 
@@ -109,9 +112,9 @@ def build() -> dict:
 
 
 _ARGTYPES = {
-    "path": {"rtf_seg_segment": (8, 7), "rtf_fused_path": (9, 5),
+    "path": {"rtf_seg_segment": (10, 7), "rtf_fused_path": (9, 5),
              "rtf_fused_sls": (9, 4)},
-    "brute": {"rtf_brute_trace": (12, 5)},
+    "brute": {"rtf_brute_trace": (14, 5)},
     "inst": {"rtf_inst_trace": (15, 4)},
     "bvh": {"rtf_bvh_trace": (13, 4)},
     "perm": {"rtf_block_perm": (7, 3)},

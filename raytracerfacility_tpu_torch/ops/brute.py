@@ -24,6 +24,7 @@ import dataclasses
 import torch
 
 from raytracerfacility_tpu_torch import kernels
+from raytracerfacility_tpu_torch.ops import sweep
 from raytracerfacility_tpu_torch.ops.bvh import morton_codes
 from raytracerfacility_tpu_torch.ops.curve import intersect_round_cone
 
@@ -237,6 +238,7 @@ def check_tables(tables, device) -> None:
             or chunk_aabbs.shape[0] < rows // TRI_CHUNK):
         raise ValueError(
             f"trace tables do not match: {[tuple(t.shape) for t in tables]}")
+    sweep.check_sweep_tables(tables)
 
 
 def check_planes(planes, n: int, device) -> None:
@@ -250,42 +252,63 @@ def check_planes(planes, n: int, device) -> None:
                          f">= {n} rays on {device}")
 
 
-def trace_planes(tables, planes, n: int, any_hit: bool) -> torch.Tensor:
+def trace_planes(tables, planes, n: int, any_hit: bool, stats: bool = False):
     """Trace the first ``n`` rays of eight float32 planes (origin xyz,
     direction xyz, tmin, tmax; each contiguous, at least ``n`` long, e.g.
     rows of the wavefront engine's state) against K3's ``tables``.
     Returns (4, n) float32 planes t, prim, u, v as :func:`_trace_plain`
-    describes. A ray whose tmax is :data:`DEAD` never hits.
+    describes. A ray whose tmax is :data:`DEAD` never hits. With
+    ``stats`` it returns (planes, (5, n) int32 counters in
+    ``sweep.STATS`` order, (ceil(n / 32),) int32 row iterations a warp):
+    the kernel's own on the card, ``sweep.sweep``'s (order "warp") on the
+    CPU.
 
     Replaces ``raytracerfacility_tpu/ops/pallas_brute.py:201
     _make_kernel(any_hit)``. On the H100 the kernel is bound by the rows
-    each ray tests after its culling (48 bytes and about 40 flops per
-    triangle, about 90 per curve segment): one thread per ray culls
-    against the 256-row chunk and 32-row run boxes with its own current
-    best t, and dispatches each run by its kind. Any-hit returns at the
-    first accepted row."""
+    its warps test after culling (48 bytes and 55 operations a triangle,
+    137 a curve segment), and a warp pays for the union of its rays'
+    rows. The design is ``csrc/sweep.cuh``'s: each warp visits the
+    256-row chunks its rays enter front to back by their least entry, each
+    lane culls chunks and 32-row runs against its own best t, ballots skip
+    what no lane enters, a run few lanes enter is tested as (ray, row)
+    pairs over the whole warp, rows load as 16-byte vectors, and each run
+    is dispatched by its kind. An any-hit lane stops at its first
+    accepted row."""
     device = planes[0].device
     if device.type == "cpu":
-        return _trace_plain(tables[0], torch.stack([p[:n] for p in planes]), n)
+        out = _trace_plain(tables[0], torch.stack([p[:n] for p in planes]), n)
+        return (out, *_trace_counts(tables, planes, n, any_hit)) if stats else out
     if device.type != "cuda":
         raise ValueError(f"no kernel for device {device}")
     check_tables(tables, device)
     check_planes(planes, n, device)
-    if 4 * n >= 2**31:
+    if 5 * n >= 2**31:
         raise ValueError(f"{n} rays exceed the kernel's 32-bit offsets")
     out = torch.empty((4, n), dtype=torch.float32, device=device)
-    if n == 0:
-        return out
-    table, sub_aabbs, chunk_aabbs = tables
-    name = f"brute_trace_kernel<{str(bool(any_hit)).lower()}>"
-    err = kernels.library("brute").rtf_brute_trace(
-        *(p.data_ptr() for p in planes), out.data_ptr(),
-        table.data_ptr(), sub_aabbs.data_ptr(), chunk_aabbs.data_ptr(),
-        n, table.shape[0] // TRI_CHUNK, TRI_CHUNK, SUB, int(any_hit),
-        ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream))
-    kernels.LAUNCHES[name] += 1
-    kernels.check(err, name)
-    return out
+    counts = sweep.empty_stats(n, device) if stats else (None, None)
+    if n > 0:
+        table, sub_aabbs, chunk_aabbs = tables
+        name = f"brute_trace_kernel<{str(bool(any_hit)).lower()}>"
+        err = kernels.library("brute").rtf_brute_trace(
+            *(p.data_ptr() for p in planes), out.data_ptr(),
+            table.data_ptr(), sub_aabbs.data_ptr(), chunk_aabbs.data_ptr(),
+            *(c.data_ptr() if stats else None for c in counts),
+            n, table.shape[0] // TRI_CHUNK, TRI_CHUNK, SUB, int(any_hit),
+            ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream))
+        kernels.LAUNCHES[name] += 1
+        kernels.check(err, name)
+    return (out, *counts) if stats else out
+
+
+def _trace_counts(tables, planes, n, any_hit, order="warp", pad=True):
+    """K3's counters on the first ``n`` rays of ``planes``: ``sweep.sweep``
+    over the 12-column table (the plain version of the kernel's
+    ``stats``); a lane with an empty window takes no part."""
+    p = [x[:n] for x in planes]
+    _, counts, warp_rows = sweep.sweep(
+        *tables, TRI_CHUNK, torch.stack(p[0:3], 1), torch.stack(p[3:6], 1),
+        p[6], p[7], p[7] > p[6], "k3", any_hit=any_hit, order=order, pad=pad)
+    return counts, warp_rows
 
 
 def _planes(origin, direction, tmin, tmax):

@@ -37,7 +37,8 @@ min, so any mix of reorders gives the same result bit for bit, and equals
 the whole-path engine's (``ops/fused.py``) ray for ray. The reference's
 other TPU scheduling around the reorder (liveness-window cascades, phase
 split, block-local sorts, sub-run bit tables, chunk visit order) changes no
-ray's result and is not ported.
+ray's result and is not ported: K1 orders its chunks per warp instead
+(``csrc/sweep.cuh``, ``ops/sweep.py``).
 """
 from __future__ import annotations
 
@@ -47,6 +48,7 @@ import os
 import torch
 
 from raytracerfacility_tpu_torch import kernels
+from raytracerfacility_tpu_torch.ops import sweep
 from raytracerfacility_tpu_torch.ops.fused import (
     _BOUNCE_TMIN,
     _NO_HIT,
@@ -57,6 +59,7 @@ from raytracerfacility_tpu_torch.ops.fused import (
     NAOV,
     NPLANES,
     OX,
+    OZ,
     RB,
     RR,
     check_kernel_inputs,
@@ -230,28 +233,37 @@ def _segment_plain(tables, env, st, rng, n, is_first, has_cont):
 
 
 def segment(tables, env, st, rng, n: int, is_first: bool, has_cont: bool,
-            chunk: int):
+            chunk: int, stats: bool = False):
     """One trace+shade segment over the first ``n`` rays of the pool
     (kernel K1), updating ``st`` (13, R) float32 and ``rng`` (R,) int32 in
     place. ``is_first``: camera rays (trace tmin = ``env[10]``) and
     first-hit AOVs, returned as (9, n) planes; later segments use the
     1e-3 bounce offset and return None. ``has_cont``: hits continue
-    along a BRDF sample (false on the last segment).
+    along a BRDF sample (false on the last segment). With ``stats`` it
+    returns (AOVs or None, (5, n) int32 counters in ``sweep.STATS`` order,
+    (ceil(n / 32),) int32 row iterations a warp): the kernel's own on the
+    card, ``sweep.sweep``'s (order "warp") on the CPU.
 
     Replaces ``raytracerfacility_tpu/ops/pallas_seg.py:254 _kernel``. On
-    the H100 the kernel is bound by the table rows each ray loads while it
-    traverses (20 floats and about 40 flops per triangle visited). The
-    design gives each ray its own thread and its own chunk/sub-run culling,
-    so no ray pays for its neighbours' boxes, and launches only over the
-    live prefix the reorder compacts; rows that a warp's rays share come
-    from L1/L2 (the bench table is 225 KB)."""
+    the H100 the kernel is bound by the table rows its warps test (20
+    floats and about 55 operations a triangle), and a warp pays for the
+    union of its rays' rows. The design is ``csrc/sweep.cuh``'s: each warp
+    visits the chunks its rays enter front to back by their least entry,
+    so near hits cull the far chunks for the whole warp; each lane culls
+    chunks and 16-row runs against its own best t, ballots skip what no
+    lane enters, a run few lanes enter is tested as (ray, row) pairs over
+    the whole warp, and rows load as 16-byte vectors. It launches only
+    over the live prefix the reorder compacts."""
     if st.device.type == "cpu":
-        return _segment_plain(tables, env, st, rng, n, is_first, has_cont)
+        counts = _segment_counts(tables, env, st, n, is_first, chunk) if stats else None
+        aov = _segment_plain(tables, env, st, rng, n, is_first, has_cont)
+        return (aov, *counts) if stats else aov
     if st.device.type != "cuda":
         raise ValueError(f"no kernel for device {st.device}")
     device = st.device
     stride = st.shape[1]
     check_kernel_inputs(tables, env, chunk, stride, NPLANES, device)
+    sweep.check_sweep_tables(tables[:3])
     if (st.dtype != torch.float32 or st.shape[0] != NPLANES
             or not st.is_contiguous() or rng.dtype != torch.int32
             or rng.shape != (stride,) or not rng.is_contiguous()
@@ -260,21 +272,36 @@ def segment(tables, env, st, rng, n: int, is_first: bool, has_cont: bool,
                          "contiguous (R,) int32 on one device, n <= R")
     aov = (torch.empty((NAOV, n), dtype=torch.float32, device=device)
            if is_first else None)
-    if n == 0:
-        return aov
-    table, sub_aabbs, chunk_aabbs, mat_table = tables
-    lib = kernels.library()
-    err = lib.rtf_seg_segment(
-        st.data_ptr(), rng.data_ptr(),
-        aov.data_ptr() if is_first else None,
-        table.data_ptr(), sub_aabbs.data_ptr(), chunk_aabbs.data_ptr(),
-        mat_table.data_ptr(), env.data_ptr(),
-        n, stride, table.shape[0] // chunk, chunk,
-        table.shape[0] // sub_aabbs.shape[0], int(is_first), int(has_cont),
-        ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream))
-    kernels.LAUNCHES["seg_segment_kernel"] += 1
-    kernels.check(err, "seg_segment_kernel")
-    return aov
+    counts = sweep.empty_stats(n, device) if stats else (None, None)
+    if n > 0:
+        table, sub_aabbs, chunk_aabbs, mat_table = tables
+        err = kernels.library().rtf_seg_segment(
+            st.data_ptr(), rng.data_ptr(),
+            aov.data_ptr() if is_first else None,
+            table.data_ptr(), sub_aabbs.data_ptr(), chunk_aabbs.data_ptr(),
+            mat_table.data_ptr(), env.data_ptr(),
+            *(c.data_ptr() if stats else None for c in counts),
+            n, stride, table.shape[0] // chunk, chunk,
+            table.shape[0] // sub_aabbs.shape[0], int(is_first), int(has_cont),
+            ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream))
+        kernels.LAUNCHES["seg_segment_kernel"] += 1
+        kernels.check(err, "seg_segment_kernel")
+    return (aov, *counts) if stats else aov
+
+
+def _segment_counts(tables, env, st, n, is_first, chunk, order="warp", pad=True):
+    """K1's counters on the first ``n`` rays of ``st`` before the segment:
+    ``sweep.sweep`` over the 20-column table (the plain version of the
+    kernel's ``stats``)."""
+    s = st[:, :n]
+    tmin = torch.full((n,), _BOUNCE_TMIN, dtype=torch.float32, device=st.device)
+    if is_first:
+        tmin[:] = env[10]
+    _, counts, warp_rows = sweep.sweep(
+        tables[0], tables[1], tables[2], chunk, s[OX:OZ + 1].T, s[DX:DZ + 1].T,
+        tmin, torch.full_like(tmin, sweep.K1_TMAX), s[ACT] > 0.0, "k1",
+        order=order, pad=pad)
+    return counts, warp_rows
 
 
 def _bperm_settings(bperm_rows, bperm_from, bperm_exact):

@@ -1,0 +1,325 @@
+"""Plain PyTorch emulation of the culled sweep that K1 and K3 share
+(``csrc/sweep.cuh``), with its work counters.
+
+:func:`sweep` replays, for rays in warps of 32 consecutive lanes, the
+chunk, run and row decisions of one of two designs, step for step:
+
+- ``order="warp"``: the kernels of ``csrc/sweep.cuh``. Every live lane
+  tests every chunk's slab at its initial best t; a chunk's key is the
+  least entry ``max(near, tmin)`` over the lanes that enter it, packed as
+  ``(orderable key bits >> b) << b | chunk`` with ``b`` the bits of a chunk
+  index. The warp visits its entered chunks in ascending word order and
+  stops when the next key lies past every live lane's best t. In a visited
+  chunk each lane re-tests the chunk's slab, then each run's, against its
+  own current best t; a run that more than :data:`PAIR_LANES` lanes enter
+  is tested one lane a ray, a run fewer enter as (ray, row) pairs spread
+  over the warp;
+- ``order="index"``: the one-thread-a-ray kernels before them, which test
+  every chunk in index order with no warp order.
+
+``pad`` applies the kernels' cull pad (``near - |near| * CULL_PAD``); the
+unpadded cull is the earlier kernels'. The slab arithmetic is the kernels',
+so every cull decision, hence every counter, equals theirs; the hit record
+is the lexicographic (t, original id) minimum over accepted rows, which
+equals the brute-force plain versions (``fused._trace_plain``,
+``brute._trace_plain``) wherever no cull drops the winning row.
+
+Counters (:data:`STATS`, per ray, live lanes only): chunk slabs tested,
+chunks entered, run slabs tested, runs entered, rows tested (an any-hit
+lane on its own up to its accept); and per warp the row iterations it
+executes (one lane a ray: every row of a run some lane enters; pairs:
+ceil(lanes x rows / 32)).
+
+:func:`floor_runs` counts the runs a cull at each ray's final best t
+enters: the least work of any visit order, the ``culled_tests`` bound of
+``chip_smoke.py``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from raytracerfacility_tpu_torch.ops import brute
+
+STATS = ("chunk slabs tested", "chunks entered", "run slabs tested",
+         "runs entered", "rows tested")
+CULL_PAD = 1.0 / 512.0  # csrc/sweep.cuh kCullPad
+LIST_CAP = 1024  # csrc/sweep.cuh kListCap: list words a warp, a round
+PAIR_LANES = 16  # csrc/sweep.cuh kPairLanes
+WARP = 32
+_NO_WORD = 0xFFFFFFFF
+LAYOUTS = ("k1", "k3")  # K1's 20-column rows, K3's 12-column rows
+K1_TMAX = 1e20  # K1's initial best t (csrc/path_common.cuh kTMax)
+
+
+def check_sweep_tables(tables) -> None:
+    """Raise unless a sweep kernel can take (rows, run boxes, chunk
+    boxes): each 16-byte aligned, since rows and boxes load as float4."""
+    if any(t.data_ptr() % 16 for t in tables):
+        raise ValueError("sweep tables must be 16-byte aligned")
+
+
+def empty_stats(n: int, device):
+    """The kernel's counter outputs for ``n`` rays: (5, n) per ray and
+    (ceil(n / 32),) per warp, int32."""
+    return (torch.empty((len(STATS), n), dtype=torch.int32, device=device),
+            torch.empty((-(-n // WARP),), dtype=torch.int32, device=device))
+
+
+def ord_bits(x):
+    """int64 holding the unsigned 32 bits of float32 ``x`` that order as
+    the floats do (csrc/sweep.cuh ord_bits)."""
+    b = x.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    return torch.where(b >= 0x80000000, b ^ 0xFFFFFFFF, b | 0x80000000)
+
+
+def inv_dir(d):
+    """The kernels' reciprocal direction, with the +-1e-20 clamp."""
+    eps = torch.where(d < 0, -1e-20, 1e-20)
+    return 1.0 / torch.where(d.abs() < 1e-20, eps, d)
+
+
+def slab(box, o, iv, tmin, bt, pad: bool):
+    """Slab test of boxes ``box`` (..., 8) against rays ``o``/``iv`` (...,
+    3) with windows ``tmin``/``bt`` (...). Returns (enters, near), near
+    padded when ``pad``."""
+    t1 = [(box[..., a] - o[..., a]) * iv[..., a] for a in range(3)]
+    t2 = [(box[..., a + 3] - o[..., a]) * iv[..., a] for a in range(3)]
+    lo = [torch.minimum(a, b) for a, b in zip(t1, t2)]
+    hi = [torch.maximum(a, b) for a, b in zip(t1, t2)]
+    near = torch.maximum(torch.maximum(lo[0], lo[1]), lo[2])
+    far = torch.minimum(torch.minimum(hi[0], hi[1]), hi[2])
+    if pad:
+        near = near - near.abs() * CULL_PAD
+    return (near <= far) & (far > tmin) & (near <= bt), near
+
+
+def _best_init(layout, tmax):
+    """The lane's record before any row: K1 (t, nx, ny, nz, mid, id),
+    K3 (t, id, u, v)."""
+    z = torch.zeros_like(tmax)
+    if layout == "k1":
+        return {"t": tmax.clone(), "id": torch.full_like(tmax, 3.4e38),
+                "nx": z, "ny": z.clone(), "nz": z.clone(), "mid": z.clone()}
+    return {"t": tmax.clone(), "id": torch.full_like(tmax, -1.0), "u": z,
+            "v": z.clone()}
+
+
+def _test_rows(layout, rows, o, d, tmin):
+    """The rows' tests, (S, sub) each: accept, t, u, v."""
+    if layout == "k1":
+        return brute.tri_test(o[:, None, :], d[:, None, :], rows, tmin[:, None])
+    return brute._block_test(o[:, None, :], d[:, None, :], rows, tmin[:, None],
+                             kinds=True)
+
+
+def sweep(table, subs, chunks, chunk: int, o, d, tmin, tmax, live,
+          layout: str, any_hit: bool = False, order: str = "warp",
+          pad: bool = True):
+    """Replay the culled sweep over ``table`` (K1's 20-column or K3's
+    12-column rows), ``subs`` (run boxes, K3's run kind in column 6) and
+    ``chunks`` for rays ``o``, ``d`` (n, 3) with windows ``tmin``, ``tmax``
+    (n,) (K1: tmax = 1e20) and ``live`` (n,) bool, lanes in warps of 32 in
+    ray order. Returns (record: dict of (n,) tensors, K1 t/nx/ny/nz/mid/id,
+    K3 t/id/u/v, and "rounds", the lane's warp's rounds; counters (5, n)
+    int32 in :data:`STATS` order; warp row iterations (ceil(n / 32),)
+    int32)."""
+    if order not in ("warp", "index") or layout not in LAYOUTS:
+        raise ValueError(f"order {order!r} / layout {layout!r}")
+    dev = o.device
+    n = o.shape[0]
+    nw = -(-n // WARP)
+    npad = nw * WARP
+
+    def padded(x, fill=0.0):
+        out = torch.full((npad, *x.shape[1:]), fill, dtype=x.dtype, device=dev)
+        out[:n] = x
+        return out
+
+    o, d, tmin = padded(o), padded(d), padded(tmin)
+    live = padded(live, False).clone()
+    best = _best_init(layout, padded(tmax, brute.DEAD))
+    iv = inv_dir(d)
+    nchunks = table.shape[0] // chunk
+    sub = table.shape[0] // subs.shape[0]
+    runs = chunk // sub
+    stats = torch.zeros((len(STATS), npad), dtype=torch.int64, device=dev)
+    wrows = torch.zeros((nw,), dtype=torch.int64, device=dev)
+    cidx = torch.arange(nchunks, device=dev)
+
+    bits = (nchunks - 1).bit_length()
+    low = (1 << bits) - 1
+    # the kernels key and visit at most LIST_CAP entered chunks a round;
+    # the index order has no list: one round over every chunk
+    cap = LIST_CAP if order == "warp" else max(1, nchunks)
+    pairs_fit = sub <= WARP and sub & (sub - 1) == 0
+    lane = torch.arange(WARP, device=dev)
+    sub_k = torch.arange(sub, device=dev)
+    run_j = torch.arange(runs, device=dev)
+    start = torch.zeros((nw,), dtype=torch.int64, device=dev)
+    rounds = torch.zeros((nw,), dtype=torch.int64, device=dev)
+    live0 = live.clone()
+    # index order: the chunk where an any-hit lane accepts (its last test)
+    last_chunk = torch.full((npad,), -1, dtype=torch.int64, device=dev)
+    while True:
+        todo = (start < nchunks) & live.view(nw, WARP).any(1)
+        if not bool(todo.any()):
+            break
+        rounds += todo
+        # the round's chunks, as words in the warp's order (_NO_WORD last):
+        # from `start` on, up to and with the cap-th one some lane enters
+        ent, near = slab(chunks[None, :nchunks], o[:, None], iv[:, None],
+                         tmin[:, None], best["t"][:, None], pad)
+        ent &= live[:, None]
+        entered = (ent.view(nw, WARP, nchunks).any(1) & (cidx >= start[:, None])
+                   & todo[:, None])
+        full = entered & (entered.cumsum(1) == cap)
+        end = torch.where(full.any(1), full.to(torch.uint8).argmax(1) + 1, nchunks)
+        end = torch.where(todo, end, start)
+        entered &= cidx < end[:, None]
+        if order == "warp":
+            key = torch.where(ent, ord_bits(torch.maximum(near, tmin[:, None]) + 0.0),
+                              _NO_WORD)
+            least = key.view(nw, WARP, nchunks).min(1).values
+            words = torch.where(entered, ((least >> bits) << bits) | cidx, _NO_WORD)
+            stats[0] += (end - start).repeat_interleave(WARP) * live
+        else:
+            words = torch.where(entered, cidx, _NO_WORD)
+        start = end
+        words = torch.sort(words, dim=1).values
+        stopped = torch.zeros((nw,), dtype=torch.bool, device=dev)
+        for step in range(int((words != _NO_WORD).sum(1).max()) if nchunks else 0):
+            word = words[:, step]
+            go = (word != _NO_WORD) & ~stopped
+            if order == "warp":
+                reach = torch.where(live, ord_bits(best["t"]), 0).view(nw, WARP).max(1).values
+                stop = go & ((word >> bits) > (reach >> bits))
+                stopped |= stop | (word == _NO_WORD)
+                go &= ~stop
+            wi = torch.nonzero(go)[:, 0]
+            if wi.numel() == 0:
+                if bool(stopped.all()):
+                    break
+                continue
+            lanes = (wi[:, None] * WARP + lane).reshape(-1)
+            c = (word[wi] & low).repeat_interleave(WARP)
+            lo_, io_, tm_ = o[lanes], iv[lanes], tmin[lanes]
+            in_chunk, _ = slab(chunks[c], lo_, io_, tm_, best["t"][lanes], pad)
+            in_chunk &= live[lanes]
+            if order == "warp":
+                stats[0, lanes] += live[lanes]
+            stats[1, lanes] += in_chunk
+            # runs no lane enters at the chunk's entry best t stay unentered
+            cand, _ = slab(subs[c[:, None] * runs + run_j], lo_[:, None], io_[:, None],
+                           tm_[:, None], best["t"][lanes][:, None], pad)
+            cand &= in_chunk[:, None]
+            tested = torch.where(in_chunk, runs, 0)
+            for j in torch.nonzero(cand.any(0))[:, 0].tolist():
+                r = c * runs + j
+                bt = best["t"][lanes]
+                in_run, _ = slab(subs[r], lo_, io_, tm_, bt, pad)
+                in_run &= in_chunk
+                if not bool(in_run.any()):
+                    continue
+                stats[3, lanes] += in_run
+                # lanes a warp has in the run: at most PAIR_LANES (warp
+                # order) and the warp tests (ray, row) pairs on all lanes
+                k_w = in_run.view(-1, WARP).sum(1)
+                paired = (k_w <= PAIR_LANES) & pairs_fit & (order == "warp")
+                wrows.index_add_(0, wi, torch.where(
+                    k_w == 0, 0, torch.where(paired, (k_w * sub + WARP - 1) // WARP, sub)))
+                sel = torch.nonzero(in_run)[:, 0]
+                ray = lanes[sel]
+                blk = table[(r[sel] * sub)[:, None] + sub_k]
+                ok, t, u, v = _test_rows(layout, blk, o[ray], d[ray], tmin[ray])
+                jf = blk[..., 9]
+                bid = best["id"][ray]
+                if any_hit:
+                    acc = ok & ((t < bt[sel, None]) | ((t == bt[sel, None])
+                                                       & (jf < bid[:, None])))
+                    hit = acc.any(1)
+                    k = acc.to(torch.uint8).argmax(1)
+                    # one lane a ray stops at its accept; pairs test the run
+                    n_rows = torch.where(hit & ~paired.repeat_interleave(WARP)[sel],
+                                         k + 1, sub)
+                    best["id"][ray] = torch.where(hit, jf.gather(1, k[:, None])[:, 0], bid)
+                    best["t"][ray] = torch.where(hit, brute.DEAD, bt[sel])
+                    done = torch.zeros_like(in_run)
+                    done[sel] = hit
+                    last_chunk[lanes[done]] = c[done]
+                    # a lane that accepts leaves the chunk after this run
+                    tested = torch.where(done, j + 1, tested)
+                    live[lanes] &= ~done
+                    in_chunk &= ~done
+                else:
+                    tk = torch.where(ok, t, torch.inf)
+                    t_blk = tk.min(1).values
+                    tie = ok & (tk == t_blk[:, None])
+                    pid = torch.where(tie, jf, torch.inf).min(1).values
+                    k = (tie & (jf == pid[:, None])).to(torch.uint8).argmax(1)
+                    better = (t_blk < bt[sel]) | ((t_blk == bt[sel]) & (pid < bid))
+                    n_rows = torch.full_like(sel, sub)
+                    kk = k[:, None]
+                    uw, vw = u.gather(1, kk)[:, 0], v.gather(1, kk)[:, 0]
+                    for name, val in (("t", t_blk), ("id", pid)):
+                        best[name][ray] = torch.where(better, val, best[name][ray])
+                    if layout == "k1":
+                        w = blk[torch.arange(sel.numel(), device=dev), k]
+                        for a, name in enumerate(("nx", "ny", "nz")):
+                            val = w[:, 10 + a] + uw * w[:, 13 + a] + vw * w[:, 16 + a]
+                            best[name][ray] = torch.where(better, val, best[name][ray])
+                        best["mid"][ray] = torch.where(better, w[:, 19], best["mid"][ray])
+                    else:
+                        best["u"][ray] = torch.where(better, uw, best["u"][ray])
+                        best["v"][ray] = torch.where(better, vw, best["v"][ray])
+                stats[4, ray] += n_rows
+            stats[2, lanes] += tested
+    if order == "index":  # each lane tests every chunk up to its accept
+        stats[0] = torch.where(last_chunk >= 0, last_chunk + 1, nchunks) * live0
+
+    best["rounds"] = rounds.repeat_interleave(WARP)
+    record = {k: v[:n] for k, v in best.items()}
+    return record, stats[:, :n].to(torch.int32), wrows.to(torch.int32)
+
+
+def floor_runs(subs, chunks, chunk: int, sub: int, o, d, tmin, best_t,
+               pairs: int = 1 << 22):
+    """Runs a cull at each ray's final best t enters (unpadded chunk and
+    run slabs, ``near <= best_t``): a lower bound of any sweep's. Returns
+    (triangle runs (n,), curve runs (n,), the row iterations each warp of
+    32 needs at least (ceil(n / 32),): for each run some of its lanes
+    enter, ceil(lanes x ``sub`` / 32), every lane busy), int64; rows are
+    ``sub`` a run."""
+    dev = o.device
+    n = o.shape[0]
+    nruns = subs.shape[0]
+    nchunks = nruns * sub // chunk
+    runs = chunk // sub
+    curve = subs[:, 6] >= 0.5
+    iv = inv_dir(d)
+    tri = torch.zeros((n,), dtype=torch.int64, device=dev)
+    cur = torch.zeros_like(tri)
+    warp_iters = torch.zeros((-(-n // WARP),), dtype=torch.int64, device=dev)
+    batch = max(WARP, (pairs // max(1, nchunks)) // WARP * WARP)
+    per = max(1, pairs // runs)
+    for r0 in range(0, n, batch):
+        sl = slice(r0, min(n, r0 + batch))
+        ent, _ = slab(chunks[None, :nchunks], o[sl, None], iv[sl, None],
+                      tmin[sl, None], best_t[sl, None], False)
+        ray, c = torch.nonzero(ent, as_tuple=True)
+        keys = []
+        for p0 in range(0, ray.numel(), per):
+            pr = ray[p0:p0 + per] + r0
+            run = c[p0:p0 + per, None] * runs + torch.arange(runs, device=dev)
+            hit, _ = slab(subs[run], o[pr, None], iv[pr, None], tmin[pr, None],
+                          best_t[pr, None], False)
+            rr = pr[:, None].expand_as(run)[hit]
+            run_hit = run[hit]
+            is_curve = curve[run_hit].to(torch.int64)
+            tri.index_add_(0, rr, 1 - is_curve)
+            cur.index_add_(0, rr, is_curve)
+            keys.append((rr // WARP) * nruns + run_hit)
+        if keys:
+            wk, lanes = torch.unique(torch.cat(keys), return_counts=True)
+            warp_iters.index_add_(0, wk // nruns, (lanes * sub + WARP - 1) // WARP)
+    return tri, cur, warp_iters

@@ -266,11 +266,37 @@ def test_package_data_ships_kernel_sources():
     patterns = config["tool"]["setuptools"]["package-data"][
         "raytracerfacility_tpu_torch"]
     csrc = pathlib.Path(kernels.__file__).parent / "csrc"
-    needed = {kernels._COMMON, *kernels.SOURCES.values()}
+    needed = {*(p.name for p in csrc.glob("*.cuh")), *kernels.SOURCES.values()}
     assert needed == {p.name for p in csrc.iterdir()}
+    assert {"path_common.cuh", "sweep.cuh"} <= needed
     for name in needed:
         assert (csrc / name).is_file()
         assert any(fnmatch.fnmatch(f"csrc/{name}", pat) for pat in patterns), name
+
+
+def test_library_path_hashes_every_header(monkeypatch, tmp_path):
+    """On a copy of ``csrc/``, an edit to any header renames every library
+    whose source includes it (and the others too: every file is hashed),
+    so no stale build survives a header change."""
+    import re
+    import shutil
+
+    csrc = tmp_path / "csrc"
+    shutil.copytree(pathlib.Path(kernels.__file__).parent / "csrc", csrc)
+    monkeypatch.setattr(kernels, "_CSRC", csrc)
+    includes = {name: set(re.findall(r'#include "([^"]+)"', (csrc / src).read_text()))
+                for name, src in kernels.SOURCES.items()}
+    assert {"path", "brute"} <= {n for n, inc in includes.items() if "sweep.cuh" in inc}
+    for header in sorted(p.name for p in csrc.glob("*.cuh")):
+        before = {name: kernels.library_path(name) for name in kernels.SOURCES}
+        original = (csrc / header).read_bytes()
+        (csrc / header).write_bytes(original + b"\n// edited\n")
+        after = {name: kernels.library_path(name) for name in kernels.SOURCES}
+        for name, inc in includes.items():
+            if header in inc:
+                assert after[name] != before[name], (header, name)
+        (csrc / header).write_bytes(original)
+        assert {name: kernels.library_path(name) for name in kernels.SOURCES} == before
 
 
 def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):

@@ -1,0 +1,236 @@
+"""The warp-ordered culled sweep that K1 and K3 share (``csrc/sweep.cuh``),
+through its plain emulation ``ops/sweep.py``, on the CPU.
+
+- In either visit order ("index": the earlier one-thread-a-ray kernels;
+  "warp": the kernels of ``csrc/sweep.cuh``) the hit record equals the
+  brute-force plain versions bit for bit: K1's trace
+  (``fused._trace_plain``, what ``seg._segment_plain`` shades) on the
+  bench scene's segments 0 and 1, K3's (``brute._trace_plain``) on a
+  strands scene, closest and any-hit.
+- The three BASELINE config-7 rays whose grazing start-cap hit lies before
+  its run box's entry: without the cull pad the culled sweep takes a
+  farther curve segment than brute force; with it, the same one. Their
+  float32 bits come from config 7's first K3 launch (512x512 x 8 pooled
+  frames) on an H100, where ``chip_smoke.py::check_junction`` prints
+  them; the CPU bake reproduces that launch's table.
+- The counters: on the CPU the wrappers' ``stats`` are the emulation's,
+  and no sweep enters fewer runs than a cull at the final best t.
+"""
+
+from __future__ import annotations
+
+import hashlib
+
+import numpy as np
+import pytest
+import torch
+
+from raytracerfacility_tpu_torch.models.pathtracer import RenderConfig, camera_pool
+from raytracerfacility_tpu_torch.ops import brute, fused, seg, sweep
+from raytracerfacility_tpu_torch.ops.rng import to_int32
+from raytracerfacility_tpu_torch.scenes import bench_scene, strands_scene
+from tests import torch_parity  # noqa: F401  (one torch thread per worker)
+
+# config 7's first K3 launch: rays 439156, 688477 and 982397 of 2,097,152
+# (chip_smoke.JUNCTION_RAYS; ox, oy, oz, dx, dy, dz, tmin, tmax as int32
+# bits), and the brute-force prim there; the unpadded cull returned prims
+# 2826, 2829, 2826
+JUNCTION_BITS = [
+    [1016773184, 1063303450, 1075009243, 1044217166, -1101104670, -1082828154, 0,
+     1621981420],
+    [1017592981, 1063482793, 1075002704, 1045216248, -1108975192, -1082577878, 0,
+     1621981420],
+    [1016773282, 1063303578, 1075009238, 1044217361, -1101109598, -1082827884, 0,
+     1621981420],
+]
+JUNCTION_PRIMS = [2827, 2830, 2827]
+# sha256 prefixes of the config-7 table, run boxes and chunk boxes
+CONFIG7_SHA = ["63da0dc43434737b", "082c88af0d1dc068", "9d98f0531bc88a08"]
+
+
+def _bench_segments():
+    """bench_scene 16x16's packed K1 tables, env vector and the state of
+    segments 0 and 1 (the plain segment 0 applied, then the reorder, then
+    every 3rd ray killed: dead lanes inside a launch, as the block reorder
+    leaves them)."""
+    scene, cam, env = bench_scene(16, 16)
+    compiled = scene.build("cpu")
+    seed = torch.arange(1, dtype=torch.int64)[:, None, None]
+    o, d, rng, _, env_vec = camera_pool(compiled, cam.state("cpu"), env.state("cpu"),
+                                        RenderConfig(width=16, height=16), seed)
+    st = fused.init_state(o, d, torch.ones(o.shape[0]))
+    rng = to_int32(rng).contiguous()
+    st0 = st.clone()
+    seg._segment_plain(compiled.fused, env_vec, st, rng, st.shape[1], True, True)
+    lo, inv_extent = seg._scene_bounds(compiled.fused[2])
+    seg.reorder(st, rng, torch.arange(st.shape[1]), st.shape[1], lo, inv_extent)
+    st[fused.ACT, ::3] = 0.0
+    return compiled, env_vec, [(st0, st0.shape[1], float(env_vec[10])),
+                               (st, st.shape[1], fused._BOUNCE_TMIN)]
+
+
+def _strand_rays():
+    """A 40-strand scene's K3 tables and 512 camera rays, every 5th with a
+    DEAD window and every 7th with a short tmax."""
+    scene, cam, env = strands_scene(16, 16, n_strands=40)
+    compiled = scene.build("cpu")
+    seed = torch.arange(2, dtype=torch.int64)[:, None, None]
+    o, d, _, _, _ = camera_pool(compiled, cam.state("cpu"), env.state("cpu"),
+                                RenderConfig(width=16, height=16), seed)
+    n = o.shape[0]
+    tmax = torch.full((n,), brute.TMAX)
+    tmax[::7] = 2.0
+    tmax[::5] = brute.DEAD
+    planes = [o[:, k].contiguous() for k in range(3)] + [
+        d[:, k].contiguous() for k in range(3)] + [torch.zeros(n), tmax]
+    return compiled.pallas_tris, planes, n
+
+
+@pytest.fixture(scope="module")
+def bench():
+    return _bench_segments()
+
+
+@pytest.fixture(scope="module")
+def strands():
+    return _strand_rays()
+
+
+@pytest.mark.parametrize("order", ["index", "warp"])
+@pytest.mark.parametrize("case", ["k1 segment 0", "k1 segment 1", "k3 closest",
+                                  "k3 any-hit"])
+def test_sweep_equals_plain(case, order, bench, strands):
+    if case.startswith("k1"):
+        compiled, env, segments = bench
+        st, n, tmin = segments[int(case[-1])]
+        s = st[:, :n]
+        live = s[fused.ACT] > 0.0
+        assert 0 < int(live.sum()) < n or case.endswith("0")
+        t = torch.full((n,), tmin, dtype=torch.float32)
+        rec, counts, wrows = sweep.sweep(
+            *compiled.fused[:3], compiled.fused_chunk, s[fused.OX:fused.OZ + 1].T,
+            s[fused.DX:fused.DZ + 1].T, t, torch.full((n,), sweep.K1_TMAX), live,
+            "k1", order=order)
+        want = fused._trace_plain(compiled.fused[0], s, tmin)
+        for k, name in enumerate(("t", "nx", "ny", "nz", "mid")):
+            assert torch.equal(rec[name][live], want[k][live]), name
+        assert int((want[0][live] < 1e19).sum()) > 0
+    else:
+        tables, planes, n = strands
+        any_hit = case.endswith("any-hit")
+        p = [x[:n] for x in planes]
+        rec, counts, wrows = sweep.sweep(
+            *tables, brute.TRI_CHUNK, torch.stack(p[0:3], 1), torch.stack(p[3:6], 1),
+            p[6], p[7], p[7] > p[6], "k3", any_hit=any_hit, order=order)
+        want = brute._trace_plain(tables[0], torch.stack(p), n)
+        hit = want[1] >= 0
+        assert 0 < int(hit.sum()) < n
+        if any_hit:
+            assert torch.equal(rec["id"] >= 0, hit)
+        else:
+            for k, name in enumerate(("t", "id", "u", "v")):
+                assert torch.equal(rec[name], want[k]), name
+        live = p[7] > p[6]
+    # rows are tested in whole runs (any-hit: up to the accept), inside
+    # the runs entered, which lie in the chunks entered
+    assert bool((counts[:, ~live] == 0).all())
+    assert bool((counts[1] <= counts[0]).all() and (counts[3] <= counts[2]).all())
+    assert int(counts[4].sum()) > 0
+    # a warp's row iteration tests at most 32 (ray, row) pairs
+    rows = torch.zeros(wrows.shape[0] * 32, dtype=torch.int32)
+    rows[:counts.shape[1]] = counts[4]
+    assert bool((32 * wrows >= rows.view(-1, 32).sum(1)).all())
+
+
+@pytest.mark.parametrize("order", ["index", "warp"])
+def test_junction_rays_need_the_cull_pad(order):
+    scene, _, _ = strands_scene(512, 512)
+    tables = scene.build("cpu").pallas_tris
+    assert [hashlib.sha256(t.numpy().tobytes()).hexdigest()[:16]
+            for t in tables] == CONFIG7_SHA
+    rays = torch.tensor(np.array(JUNCTION_BITS, np.int32)).view(torch.float32)
+    want = brute._trace_plain(tables[0], rays.T.contiguous(), rays.shape[0])
+    assert want[1].to(torch.int64).tolist() == JUNCTION_PRIMS
+    got = {}
+    for pad in (False, True):
+        rec, _, _ = sweep.sweep(*tables, brute.TRI_CHUNK, rays[:, 0:3], rays[:, 3:6],
+                                rays[:, 6], rays[:, 7], rays[:, 7] > rays[:, 6], "k3",
+                                order=order, pad=pad)
+        got[pad] = torch.stack([rec[k] for k in ("t", "id", "u", "v")])
+    # without the pad every ray keeps a farther segment's hit ...
+    assert bool((got[False][1] != want[1]).all())
+    assert bool((got[False][0] > want[0]).all())
+    # ... with it, the brute-force hit, bit for bit
+    assert torch.equal(got[True], want)
+
+
+def test_wrapper_stats_on_the_cpu_are_the_emulation(bench, strands):
+    compiled, env, segments = bench
+    st, n, _ = segments[1]
+    st_k, rng = st.clone(), torch.zeros(st.shape[1], dtype=torch.int32)
+    aov, counts, wrows = seg.segment(compiled.fused, env, st_k, rng, n, False, True,
+                                     compiled.fused_chunk, stats=True)
+    assert aov is None
+    want = seg._segment_counts(compiled.fused, env, st, n, False, compiled.fused_chunk)
+    assert torch.equal(counts, want[0]) and torch.equal(wrows, want[1])
+    assert counts.dtype == torch.int32 and counts.shape == (5, n)
+    tables, planes, n = strands
+    out, counts, wrows = brute.trace_planes(tables, planes, n, False, stats=True)
+    assert torch.equal(out, brute.trace_planes(tables, planes, n, False))
+    want = brute._trace_counts(tables, planes, n, False)
+    assert torch.equal(counts, want[0]) and torch.equal(wrows, want[1])
+    assert wrows.shape == (-(-n // 32),)
+
+
+@pytest.mark.parametrize("order", ["index", "warp"])
+def test_no_sweep_enters_fewer_runs_than_the_final_t_floor(order, strands):
+    tables, planes, n = strands
+    out = brute._trace_plain(tables[0], torch.stack([p[:n] for p in planes]), n)
+    counts, wrows = brute._trace_counts(tables, planes, n, False, order=order)
+    p = [x[:n] for x in planes]
+    # a DEAD lane's final best t is DEAD, so the floor enters nothing there
+    tri, cur, warp_iters = sweep.floor_runs(
+        tables[1], tables[2], brute.TRI_CHUNK, brute.SUB, torch.stack(p[0:3], 1),
+        torch.stack(p[3:6], 1), p[6], out[0])
+    assert bool((counts[3] >= tri + cur).all())
+    assert int((tri + cur).sum()) > 0
+    assert bool((wrows >= warp_iters).all())
+
+
+@pytest.mark.parametrize("case", ["k1 segment 1", "k3 closest", "k3 any-hit"])
+def test_sweep_in_rounds_equals_plain(case, bench, strands, monkeypatch):
+    """A table of more chunks than a warp's list holds is keyed and visited
+    in rounds (config 6's 2,029 chunks on the card); a list of one word
+    makes the test scenes take one round a chunk some lane enters, and
+    the record stays the plain one."""
+    monkeypatch.setattr(sweep, "LIST_CAP", 1)
+    if case.startswith("k1"):
+        compiled, env, segments = bench
+        st, n, tmin = segments[1]
+        live = st[fused.ACT] > 0.0
+        rec, counts, _ = sweep.sweep(
+            *compiled.fused[:3], compiled.fused_chunk, st[fused.OX:fused.OZ + 1].T,
+            st[fused.DX:fused.DZ + 1].T, torch.full((n,), tmin),
+            torch.full((n,), sweep.K1_TMAX), live, "k1")
+        want = fused._trace_plain(compiled.fused[0], st, tmin)
+        for k, name in enumerate(("t", "nx", "ny", "nz", "mid")):
+            assert torch.equal(rec[name][live], want[k][live]), name
+        nchunks = compiled.fused[0].shape[0] // compiled.fused_chunk
+    else:
+        tables, planes, n = strands
+        any_hit = case.endswith("any-hit")
+        p = [x[:n] for x in planes]
+        live = p[7] > p[6]
+        rec, counts, _ = sweep.sweep(
+            *tables, brute.TRI_CHUNK, torch.stack(p[0:3], 1), torch.stack(p[3:6], 1),
+            p[6], p[7], live, "k3", any_hit=any_hit)
+        want = brute._trace_plain(tables[0], torch.stack(p), n)
+        if any_hit:
+            assert torch.equal(rec["id"] >= 0, want[1] >= 0)
+        else:
+            for k, name in enumerate(("t", "id", "u", "v")):
+                assert torch.equal(rec[name], want[k]), name
+        nchunks = tables[0].shape[0] // brute.TRI_CHUNK
+    assert nchunks > 1
+    if not case.endswith("any-hit"):  # every chunk keyed once, then visits
+        assert bool((counts[0][live] >= nchunks).all())

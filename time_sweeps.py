@@ -1,0 +1,196 @@
+#!/usr/bin/env python3
+"""Time the port's sweep kernels K1 (``seg_segment_kernel``) and K3
+(``brute_trace_kernel``) at the launches ``chip_smoke.py`` times them, for
+the port package of one tree, so that two trees compare inside one call:
+
+    python3 time_sweeps.py [--tree DIR] [--reps 5]
+
+``--tree`` names a checkout whose ``raytracerfacility_tpu_torch`` is
+imported (default: this file's own); its kernels build into that tree's
+``build/rtf_torch/``. Shapes: the bench scene at 1920x1080, segments 0 and
+1 (K1); BASELINE config 4's first presorted launch (K1); config 6's first
+two segmented launches at 512x512 x 2 frames (K1); config 7's first launch at
+512x512 x 8 frames (K3 closest) and its SingleLightSource shadow rays (K3
+any-hit). Each time is the median of ``--reps`` CUDA-event timings of one
+launch (K1's inputs are cloned inside the window, as ``chip_smoke.py``
+does). Needs one CUDA device; prints the card's ``nvidia-smi`` name and
+power limit, then one JSON line.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import pathlib
+import subprocess
+import sys
+
+
+def _median_ms(fn, reps):
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return sorted(times)[reps // 2], times
+
+
+def _first_call(module, name, render, keep):
+    """Run ``render()`` with ``module.name`` (and any other module's
+    reference to the same function) recording the first call for which
+    ``keep(arguments)`` holds (``arguments`` by parameter name): its
+    arguments in signature order, cloned where tensors."""
+    import inspect
+
+    import torch
+
+    real = getattr(module, name)
+    signature = inspect.signature(real)
+    seen = []
+
+    def clone(x):
+        if torch.is_tensor(x):
+            return x.clone()
+        if isinstance(x, list):
+            return [clone(y) for y in x]
+        return x
+
+    def spy(*args, **kwargs):
+        bound = signature.bind(*args, **kwargs)
+        bound.apply_defaults()
+        if not seen and keep(bound.arguments):
+            seen.append(tuple(clone(a) for a in bound.arguments.values()))
+        return real(*args, **kwargs)
+
+    holders = [m for m in list(sys.modules.values())
+               if getattr(m, name, None) is real]
+    for m in holders:
+        setattr(m, name, spy)
+    try:
+        render()
+    finally:
+        for m in holders:
+            setattr(m, name, real)
+    return seen[0]
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--tree", default=str(pathlib.Path(__file__).resolve().parent))
+    ap.add_argument("--reps", type=int, default=5)
+    args = ap.parse_args()
+    sys.path.insert(0, str(pathlib.Path(args.tree).resolve()))
+
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("time_sweeps: no CUDA device")
+    from raytracerfacility_tpu_torch import kernels
+    from raytracerfacility_tpu_torch.enums import EnvironmentalLightingType
+    from raytracerfacility_tpu_torch.models.illumination import (
+        TriangleIlluminationEstimator,
+        estimate_illumination_counted,
+    )
+    from raytracerfacility_tpu_torch.models.pathtracer import (
+        RenderConfig,
+        camera_pool,
+        init_frame,
+        render_frames_counted,
+    )
+    from raytracerfacility_tpu_torch.models.renderer import EnvironmentProperties
+    from raytracerfacility_tpu_torch.ops import brute, fused, seg
+    from raytracerfacility_tpu_torch.ops.rng import to_int32
+    from raytracerfacility_tpu_torch.scenes import (
+        bench_scene,
+        canopy_illumination,
+        canopy_scene,
+        strands_scene,
+    )
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=True, timeout=60).stdout.strip().splitlines()[0]
+    print(smi)
+    kernels.build()
+    dev = torch.device("cuda", 0)
+    ms = {}
+
+    def time_k1(what, launch):
+        tables, env, st, rng, n, first, has_cont, chunk = launch[:8]
+        ms[what] = _median_ms(lambda: seg.segment(tables, env, st.clone(), rng.clone(),
+                                                  n, first, has_cont, chunk), args.reps)
+
+    # 1080p segments 0 and 1
+    scene, cam, env = bench_scene(1920, 1080)
+    compiled = scene.build(dev)
+    seed = torch.zeros((1, 1, 1), dtype=torch.int64, device=dev)
+    o, d, rng, _, env0 = camera_pool(compiled, cam.state(dev), env.state(dev),
+                                     RenderConfig(width=1920, height=1080, bounces=8),
+                                     seed)
+    n = o.shape[0]
+    st0 = fused.init_state(o, d, torch.ones(n, device=dev))
+    rng0 = to_int32(rng).contiguous()
+    tables, chunk = compiled.fused, compiled.fused_chunk
+    time_k1("K1 1080p segment 0", (tables, env0, st0, rng0, n, True, True, chunk))
+    st1, rng1 = st0.clone(), rng0.clone()
+    seg.segment(tables, env0, st1, rng1, n, True, True, chunk)
+    lo, inv_extent = seg._scene_bounds(tables[2])
+    n1 = seg.reorder(st1, rng1, torch.arange(n, device=dev), n, lo, inv_extent)
+    time_k1("K1 1080p segment 1", (tables, env0, st1, rng1, n1, False, True, chunk))
+
+    # config 4's first presorted launch
+    scene, items, env, config = canopy_illumination()
+    c4 = scene.build(dev)
+    probes = TriangleIlluminationEstimator().prepare_light_probe_group(items, dev)
+    launch = _first_call(seg, "segment", lambda: estimate_illumination_counted(
+        c4, env.state(dev), config, probes, seed=1), lambda a: True)
+    time_k1("K1 config 4 presorted segment 0", launch)
+    del c4, probes
+
+    # config 6's first two segmented launches
+    scene, cam, env = canopy_scene(512, 512)
+    c6 = scene.build(dev)
+    for s in (0, 1):
+        launch = _first_call(seg, "segment", lambda: render_frames_counted(
+            c6, cam.state(dev), env.state(dev), RenderConfig(width=512, height=512,
+                                                             bounces=2),
+            init_frame(512, 512, dev), 2), lambda a, s=s: a["is_first"] == (s == 0))
+        time_k1(f"K1 config 6 segment {s}", launch)
+    del c6, launch
+
+    # config 7: K3 closest on the first launch, any-hit on the SLS shadow rays
+    scene, cam, env = strands_scene(512, 512)
+    c7 = scene.build(dev)
+    sls = EnvironmentProperties(sun_direction=(0.45, 0.75, 0.35), light_size=0.05,
+                                ambient_light_intensity=0.2)
+    for what, config, env_state, any_hit in (
+            ("K3 closest config 7 segment 0", RenderConfig(width=512, height=512,
+                                                           bounces=2),
+             env.state(dev), False),
+            ("K3 any-hit config 7 SLS shadow rays", RenderConfig(
+                width=512, height=512, bounces=2,
+                lighting_type=EnvironmentalLightingType.SINGLE_LIGHT_SOURCE),
+             sls.state(dev), True)):
+        tabs, planes, n = _first_call(
+            brute, "trace_planes", lambda: render_frames_counted(
+                c7, cam.state(dev), env_state, config, init_frame(512, 512, dev), 8),
+            lambda a, h=any_hit: bool(a["any_hit"]) == h)[:3]
+        planes = [p[:n].contiguous() for p in planes]
+        ms[what] = _median_ms(lambda: brute.trace_planes(tabs, planes, n, any_hit),
+                              args.reps)
+    print(json.dumps({"tree": args.tree, "card": smi, "torch": torch.__version__,
+                      "ms": {k: v[0] for k, v in ms.items()},
+                      "times": {k: v[1] for k, v in ms.items()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
