@@ -20,16 +20,19 @@ its kernels:
   config 6 (2,705 instance records) and the 1024 x 262,144-triangle forest
   of ``scripts/bench_instanced.py``, 512x512 primary rays each, through
   ``compile_shared_instanced`` / ``pack_instanced_tables`` and
-  ``trace_closest_instanced``; the canopy also against K3 on its
-  world-space bake.
+  ``trace_closest_instanced``; K4 against its plain version and its work
+  counters against ``ops/inst_sweep.py``'s replay; the canopy also
+  against K3 on its world-space bake.
 - the LBVH route (K5): config 6's 1,038,338-triangle bake compiled with
   ``build_bvh=True`` (its BVH built on the card and held bit for bit to
   the CPU build) at 512x512, 2 bounces, 2 pooled frames, under Scene and
   SingleLightSource lighting, on the wavefront engine's LBVH walker
   (``bvh_trace_kernel<false>`` and ``<true>``); the same frames on the
   segmented engine (K1); config 7's strands on the walker; K5 against its
-  plain version on every ray of the captured launches and against K3 on
-  the same rays.
+  plain version (closest hit: the ordered replay; any-hit: the
+  reference's skip-link walk) and its closest hit against the skip-link
+  walk on every ray of the captured launches (config 4's first too), and
+  against K3 on the same rays.
 - the illumination estimator (BASELINE config 4: the 17 x 17 sorghum
   canopy, 110,976 probes, 221,952 probe rays, 2 bounces) through
   ``TriangleIlluminationEstimator`` on the segmented engine with a presort
@@ -718,23 +721,28 @@ def _opened(tables, keys):
     return out
 
 
-def check_k4(tables, planes, n):
-    """K4 against its plain version on the ``n`` rays of ``planes``: the
-    decisions (prim, instance, hence hit) equal on >= 99.9% of all rays and
-    of the rays that hit in either, and t, u, v equal wherever the
-    decisions are. The rays that differ go through the kernel again with
-    the instance boxes opened, then with every box opened: where it then
-    equals the plain version, that cull decided them. Returns (max |d| of t
-    over rays both hit, kernel output, plain ms: one call, CUDA events)."""
+def check_k4(tables, planes, n, out_k, stride=1):
+    """K4 against its plain version: ``out_k``, the (5, n) record (t,
+    prim, instance, u, v) of the main path's counted launch over all ``n``
+    rays of ``planes``, held on every ``stride``-th ray to the plain
+    version on those rays. The decisions (prim, instance, hence hit) and
+    t, u, v must be equal on every ray checked (the earlier
+    one-thread-a-ray kernel's count: 0 differ). The kernel's work depends
+    on which rays share a warp, so it is always launched on the whole
+    launch. Rays that differ go through the kernel again, over all rays,
+    with the instance boxes opened, then with every box opened: where it
+    then equals the plain version, that cull decided them. Returns (max
+    |d| of t over rays both hit, plain ms: one call, CUDA events)."""
     import torch
 
     from raytracerfacility_tpu_torch.ops import inst
 
-    out_k = inst.trace_planes(tables, planes, n)
+    sub = [p[::stride].contiguous() for p in planes]
+    out_k = out_k[:, ::stride]
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    out_p = inst._trace_plain(tables, torch.stack(planes), n)
+    out_p = inst._trace_plain(tables, torch.stack(sub), sub[0].shape[0])
     end.record()
     end.synchronize()
     same = (out_k[1] == out_p[1]) & (out_k[2] == out_p[2])
@@ -745,26 +753,37 @@ def check_k4(tables, planes, n):
     rest = int(((out_k[[0, 3, 4]] != out_p[[0, 3, 4]]).any(0) & same).sum())
     err = float((out_k[0][both] - out_p[0][both]).abs().max()) if bool(both.any()) else 0.0
     diff = torch.nonzero(~same)[:, 0]
-    print(f"  K4 vs plain: {n} rays, {int(hit_k.sum())} hits (plain "
-          f"{int(hit_p.sum())}); prim and instance equal on {agree:.6f} of them "
-          f"and on {agree_hits:.6f} of the {int(either.sum())} that hit in "
-          f"either ({diff.numel()} differ); t, u, v differ on {rest} rays with "
-          f"equal decisions; t max |d| over rays both hit {err:.3g}")
+    print(f"  K4 vs plain: {out_p.shape[1]} rays ("
+          f"{'all' if stride == 1 else f'every {stride}th'} of the launch's "
+          f"{n}), {int(hit_k.sum())} hits (plain {int(hit_p.sum())}); prim and "
+          f"instance equal on {agree:.6f} of them and on {agree_hits:.6f} of the "
+          f"{int(either.sum())} that hit in either ({diff.numel()} differ); t, u, v "
+          f"differ on {rest} rays with equal decisions; t max |d| over rays both "
+          f"hit {err:.3g}")
     if diff.numel():
-        sel = [p[diff].contiguous() for p in planes]
         for what, keys in (("the instance boxes", ("inst_box",)),
                            ("every box", ("inst_box", "obj_chunks", "sub_aabbs"))):
-            o = inst.trace_planes(_opened(tables, keys), sel, diff.numel())
+            o = inst.trace_planes(_opened(tables, keys), planes, n)[:, ::stride]
             print(f"    with {what} opened the kernel equals the plain version "
-                  f"on {int((o == out_p[:, diff]).all(0).sum())} of them")
+                  f"on {int((o[:, diff] == out_p[:, diff]).all(0).sum())} of them")
         for j in range(min(4, diff.numel())):
             i = int(diff[j])
-            print(f"    ray {i}: kernel (t, prim, inst, u, v) "
+            print(f"    ray {i * stride}: kernel (t, prim, inst, u, v) "
                   f"{[float(x) for x in out_k[:, i]]}, plain "
                   f"{[float(x) for x in out_p[:, i]]}")
-    if min(agree, agree_hits) < HIT_AGREE or rest:
+    if diff.numel() or rest:
         raise AssertionError("K4 disagrees with its plain version")
-    return err, out_k, start.elapsed_time(end)
+    return err, start.elapsed_time(end)
+
+
+def _record(res, iid):
+    """The (5, n) K4 record (t, prim, instance, u, v) of
+    ``inst.trace_closest_instanced``'s result."""
+    import torch
+
+    return torch.stack([res.t.reshape(-1), res.prim.reshape(-1).float(),
+                        iid.reshape(-1).float(), res.u.reshape(-1),
+                        res.v.reshape(-1)])
 
 
 def _slab_enter(lo, hi, o, iv, tmin, bt):
@@ -832,6 +851,55 @@ def culled_tests_inst(tables, planes, n, best_t, block=1 << 22):
     return tests, ray.shape[0], entered
 
 
+# warps of a K4 launch whose counters the emulation replays on the host
+K4_WARPS = {"canopy": 32, "forest": 16}
+
+
+def k4_work(tables, planes, n, floor, what, out_k):
+    """K4's work on a strided sample of whole warps (``K4_WARPS``): the
+    ``stats=True`` kernel's counters, row iterations and record must equal
+    ``ops/inst_sweep.py``'s replay (run on the host) exactly, and its
+    record the main path's ``out_k`` on every ray. Prints the
+    kernel's means a ray over every ray beside ``floor`` = (triangle
+    tests, instances entered, object chunks entered) of a cull at each
+    ray's final best t (:func:`culled_tests_inst`), and the earlier
+    one-thread-a-ray kernel's instance box tests a ray (all of them).
+    Returns {counter name: mean a ray} plus the warps' row iterations."""
+    import torch
+
+    from raytracerfacility_tpu_torch.ops import inst, inst_sweep
+
+    out, counts, wrows = inst.trace_planes(tables, planes, n, stats=True)
+    cpu = torch.device("cpu")
+    host = {k: v.to(cpu) if torch.is_tensor(v) else v for k, v in tables.items()}
+    nw = n // 32
+    w = torch.arange(0, nw, max(1, nw // K4_WARPS[what]))
+    idx = (w[:, None] * 32 + torch.arange(32)).reshape(-1)
+    p = [x.to(cpu)[idx] for x in planes]
+    t0 = time.perf_counter()
+    rec, c_e, w_e = inst_sweep.sweep_instanced(host, torch.stack(p[0:3], 1),
+                                               torch.stack(p[3:6], 1), p[6], p[7])
+    counts, wrows, out = counts.to(cpu), wrows.to(cpu), out.to(cpu)
+    equal = (torch.equal(c_e, counts[:, idx]) and torch.equal(w_e, wrows[w])
+             and torch.equal(rec, out[:, idx]))
+    main = torch.equal(out, out_k.to(cpu))
+    mean = {name: float(counts[k].double().mean())
+            for k, name in enumerate(inst_sweep.STATS)}
+    mean["row iterations a warp"] = float(wrows.double().mean())
+    tests, pairs, chunks = floor
+    print(f"  K4 {what} work: counters of {w.numel()} warps == replay: {equal}, "
+          f"record == the main path's on all {n} rays: {main} "
+          f"({time.perf_counter() - t0:.1f} s); a ray: "
+          + ", ".join(f"{k} {v:.2f}" for k, v in mean.items())
+          + f"; floor at the final best t: instances entered {pairs / n:.2f}, "
+          f"chunks entered {chunks / n:.2f}, rows {tests / n:.2f}; the earlier "
+          f"kernel tested {tables['inst'].shape[0]} instance boxes a ray")
+    if not (equal and main):
+        raise AssertionError(f"K4 {what}: the stats kernel differs from the replay "
+                             f"or the main path")
+    return mean
+
+
 def _k4_bytes(tables, n):
     """K4's tables read once, eight ray planes in and five out."""
     return _nbytes(*(tables[k] for k in _INST_KEYS)) + 4 * 13 * n
@@ -865,7 +933,7 @@ def canopy_phase(device, totals):
     trace one frame of primary rays (counted), hold K4 against its plain
     version on every ray and against K3 on the scene's world-space bake.
     Returns (max |d| of t against the plain version, K4 ms, plain ms, bound
-    ms, bound by)."""
+    ms, bound by, work counters)."""
     import torch
 
     from raytracerfacility_tpu_torch.ops import brute, inst
@@ -894,7 +962,8 @@ def canopy_phase(device, totals):
             and bool(((iid >= 0) == res.hit).all())):
         raise AssertionError("the canopy trace is not finite, hit and labelled")
     planes = brute._planes(o, d, INST_TMIN, INST_TMAX)[0]
-    err, out_k, plain_ms = check_k4(tables, planes, n)
+    out_k = _record(res, iid)
+    err, plain_ms = check_k4(tables, planes, n, out_k)
 
     # against K3 on the world-space bake: the two spaces round apart, so a
     # ray that grazes an edge may take the neighbouring triangle or, on a
@@ -936,15 +1005,17 @@ def canopy_phase(device, totals):
           f"plain {plain_ms:.3f} ms; at the final best t {pairs} instances and "
           f"{chunks} object chunks entered, {tests} triangle tests, bound "
           f"{b:.4f} ms by {by}")
-    return err, ms, plain_ms, b, by
+    work = k4_work(tables, planes, n, (tests, pairs, chunks), "canopy", out_k)
+    return err, ms, plain_ms, b, by, work
 
 
 def forest_phase(device, totals):
     """The forest of scripts/bench_instanced.py on K4 at full width: pack
-    the shared tables, trace 512x512 primary rays (counted), hold K4
-    against its plain version on every 64th ray, time it and bound it.
+    the shared tables, trace 512x512 primary rays (counted), hold that
+    launch's output against the plain version on every 64th ray, time it
+    and bound it.
     Returns (max |d| of t against the plain version, K4 ms, plain ms on the
-    subset, bound ms, bound by, rays in the subset)."""
+    subset, bound ms, bound by, rays in the subset, work counters)."""
     import numpy as np
     import torch
 
@@ -979,19 +1050,21 @@ def forest_phase(device, totals):
             and bool(((iid >= 0) == res.hit).all())):
         raise AssertionError("the forest trace is not finite, hit and labelled")
     planes = brute._planes(o, d, tmin, tmax)[0]
-    subset = [p[::FOREST_STRIDE].contiguous() for p in planes]
-    err, _, plain_ms = check_k4(tables, subset, subset[0].shape[0])
+    out_k = _record(res, iid)
+    err, plain_ms = check_k4(tables, planes, n, out_k, FOREST_STRIDE)
+    subset = -(-n // FOREST_STRIDE)
     ms, times = _median_ms(lambda: inst.trace_planes(tables, planes, n))
     tests, pairs, chunks = culled_tests_inst(tables, planes, n,
                                              res.t.reshape(-1).contiguous())
     b, by = bound(_k4_bytes(tables, n), tests, 0)
+    work = k4_work(tables, planes, n, (tests, pairs, chunks), "forest", out_k)
     print(f"  K4 at {n} rays: median of {len(times)} {ms:.3f} ms "
           f"({', '.join(f'{t:.3f}' for t in times)}), {n / ms / 1e3:.3f} Mrays/s, "
           f"hit fraction {float(res.hit.float().mean()):.6f}; plain {plain_ms:.3f} ms "
-          f"on the {subset[0].shape[0]}-ray subset; at the final best t {pairs} "
+          f"on the {subset}-ray subset; at the final best t {pairs} "
           f"instances and {chunks} object chunks entered, {tests} triangle "
           f"tests, bound {b:.4f} ms by {by}")
-    return err, ms, plain_ms, b, by, subset[0].shape[0]
+    return err, ms, plain_ms, b, by, subset, work
 
 
 # The LBVH route (K5): BASELINE config 6's 1,038,338-triangle bake at
@@ -1038,58 +1111,87 @@ def _spread(x):
             f"max {float(x.max()):.0f}")
 
 
+def _brute_rows(bvh):
+    """The BVH's rows as K3's 12-column table (v0, e1, e2, original prim,
+    kind) for ``brute._trace_plain``: every row tested, no cull."""
+    from raytracerfacility_tpu_torch.ops.bvh import decode_int_column
+
+    rows = bvh.tris.clone()
+    rows[:, 9] = decode_int_column(bvh.tris[:, 9]).float()
+    rows[:, 10] = decode_int_column(bvh.tris[:, 11]).float()
+    rows[:, 11] = 0.0
+    return rows
+
+
 def check_k5(bvh, planes, n, any_hit, what):
-    """K5 against its plain version on all ``n`` rays of a captured
-    launch: the decision (prim, hence hit) equal on >= 99.9% of the rays
-    with a live window and of the rays that hit in either, and t, u, v
-    equal wherever the decisions are. Prints each ray's node visits and
-    row tests and the rays at the step cap. Returns (max |d| of t over
-    rays both hit, or of the flag for any-hit; kernel outputs; plain ms:
-    one call, CUDA events)."""
+    """K5 on all ``n`` rays of a captured launch, against its plain
+    version: every output and counter equal (any-hit's prim included).
+    The closest hit's plain version is the ordered replay
+    ``traverse._walk_ordered``, any-hit's the reference's skip-link walk
+    ``traverse._walk_plain``, which the closest hit is also held to: (t,
+    u, v, prim) equal on every ray but those where the skip walk's
+    unpadded best-t cull drops brute force's hit (``brute._trace_plain``
+    over every row), where the kernel must have brute force's. Prints
+    both walks' node visits (box tests) and row tests, the rays at the
+    step cap, and the kernel's median time. Returns (max |d| of t against
+    the plain version, kernel outputs, plain ms: one call, CUDA events,
+    rays where the closest hit differs from the skip walk)."""
     import torch
 
     from raytracerfacility_tpu_torch.ops import brute, traverse
 
     out_k, prim_k, stats_k = traverse.trace_planes(bvh, planes, n, any_hit, stats=True)
+    rays = torch.stack(planes)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    out_p, prim_p, stats_p = traverse._walk_plain(bvh, torch.stack(planes), n, any_hit,
-                                                  stats=True)
+    if any_hit:
+        out_r, prim_r, stats_r = traverse._walk_plain(bvh, rays, n, True, stats=True)
+    else:
+        out_r, prim_r, stats_r = traverse._walk_ordered(bvh, rays, n, stats=True)
     end.record()
     end.synchronize()
-    same = prim_k == prim_p
-    hit_k, hit_p = prim_k >= 0, prim_p >= 0
-    either, both = hit_k | hit_p, hit_k & hit_p
+    replay = int(((out_k != out_r).any(0) | (prim_k != prim_r)
+                  | (stats_k != stats_r).any(0)).sum())
     lanes = planes[7] != brute.DEAD
-    agree = float(same[lanes].float().mean())
-    agree_hits = float(same[either].float().mean()) if bool(either.any()) else 1.0
-    rest = int(((out_k != out_p).any(0) & same).sum())
-    stats_same = int((stats_k == stats_p).all(0).sum())
     if any_hit:
-        err = float((hit_k != hit_p).float().max())
+        out_s, prim_s, stats_s = out_r, prim_r, stats_r
     else:
-        err = float((out_k[0][both] - out_p[0][both]).abs().max()) if bool(both.any()) else 0.0
-    diff = torch.nonzero(~same & lanes)[:, 0]
+        out_s, prim_s, stats_s = traverse._walk_plain(bvh, rays, n, False, stats=True)
+    diff = torch.nonzero((out_k != out_s).any(0) | (prim_k != prim_s))[:, 0]
+    unexplained = diff.numel() if any_hit else 0
+    if diff.numel() and not any_hit:
+        bf = brute._trace_plain(_brute_rows(bvh), rays[:, diff].contiguous(), diff.numel())
+        rec_k = torch.stack([out_k[0], prim_k.float(), out_k[1], out_k[2]])[:, diff]
+        rec_s = torch.stack([out_s[0], prim_s.float(), out_s[1], out_s[2]])[:, diff]
+        k_bf, s_bf = (rec_k == bf).all(0), (rec_s == bf).all(0)
+        unexplained = int((~k_bf | s_bf).sum())
+        for j in range(min(8, diff.numel())):
+            i = int(diff[j])
+            print(f"    ray {i} {[int(x) for x in rays[:, i].view(torch.int32)]}: "
+                  f"kernel (t, prim) ({float(out_k[0, i])}, {int(prim_k[i])}), skip "
+                  f"walk ({float(out_s[0, i])}, {int(prim_s[i])}), brute force "
+                  f"({float(bf[0, j])}, {int(bf[1, j])})")
+    err = float((out_k[0] - out_r[0]).abs().max())
+    ms, times = _median_ms(lambda: traverse.trace_planes(bvh, planes, n, any_hit))
     capped = int((stats_k[0] >= traverse.MAX_STEPS).sum())
-    print(f"  K5 {'any-hit' if any_hit else 'closest'} vs plain, {what}: {n} rays, "
-          f"{int(lanes.sum())} with a live window, {int(hit_k.sum())} hits (plain "
-          f"{int(hit_p.sum())}); prim equal on {agree:.6f} of them and on "
-          f"{agree_hits:.6f} of the {int(either.sum())} that hit in either "
-          f"({diff.numel()} differ); t, u, v differ on {rest} rays with equal "
-          f"decisions; node visits and row tests equal on {stats_same}; "
-          f"{'flag' if any_hit else 't'} max |d| {err:.3g}")
-    print(f"    per ray: node visits {_spread(stats_k[0][lanes])}; row tests "
-          f"{_spread(stats_k[1][lanes])}; {capped} rays at the "
-          f"{traverse.MAX_STEPS}-step cap; plain {start.elapsed_time(end):.1f} ms")
-    for j in range(min(4, diff.numel())):
-        i = int(diff[j])
-        print(f"    ray {i}: kernel (t, u, v, prim) {[float(x) for x in out_k[:, i]]}, "
-              f"{int(prim_k[i])}; plain {[float(x) for x in out_p[:, i]]}, "
-              f"{int(prim_p[i])}")
-    if min(agree, agree_hits) < HIT_AGREE or rest:
-        raise AssertionError("K5 disagrees with its plain version")
-    return err, (out_k, prim_k, stats_k), start.elapsed_time(end)
+    capped_s = int((stats_s[0] >= traverse.MAX_STEPS).sum())
+    print(f"  K5 {'any-hit' if any_hit else 'closest'}, {what}: {n} rays, "
+          f"{int(lanes.sum())} with a live window, {int((prim_k >= 0).sum())} hits "
+          f"(skip walk {int((prim_s >= 0).sum())}); against its plain version "
+          f"({'the skip walk' if any_hit else 'the ordered replay'}) {replay} rays "
+          f"differ (outputs or counters); against the skip walk t, u, v, prim "
+          f"differ on {diff.numel()} rays, {unexplained} not where brute force "
+          f"sides with the kernel; "
+          f"kernel median {ms:.3f} ms ({', '.join(f'{t:.3f}' for t in times)})")
+    print(f"    per ray, kernel: node visits {_spread(stats_k[0][lanes])}; row tests "
+          f"{_spread(stats_k[1][lanes])}; skip walk: node visits "
+          f"{_spread(stats_s[0][lanes])}; row tests {_spread(stats_s[1][lanes])}; "
+          f"rays at the {traverse.MAX_STEPS}-step cap: kernel {capped}, skip walk "
+          f"{capped_s}; plain version {start.elapsed_time(end):.1f} ms")
+    if replay or unexplained or capped:
+        raise AssertionError(f"K5 {what}: disagrees with its plain version or the skip walk")
+    return err, (out_k, prim_k, stats_k), start.elapsed_time(end), diff.numel()
 
 
 def k5_bound(bvh, planes, n, any_hit, result):
@@ -1278,12 +1380,12 @@ def lbvh_phase(device, totals):
     closest = [c for c in capture_k5(lambda: render(walker)) if not c[0]]
     shadow = [c for c in capture_k5(lambda: render(walker, sls_cfg, sls_s)) if c[0]]
     print("phase 15: K5 vs plain on every ray of the captured launches")
-    err_c, res0, plain_c = check_k5(walker.bvh, closest[0][1], closest[0][2], False,
-                                    "config 6 segment 0")
-    err_1, _, _ = check_k5(walker.bvh, closest[1][1], closest[1][2], False,
-                           "config 6 segment 1")
-    err_a, res_a, plain_a = check_k5(walker.bvh, shadow[0][1], shadow[0][2], True,
-                                     "config 6 SLS shadow rays")
+    err_c, res0, plain_c, _ = check_k5(walker.bvh, closest[0][1], closest[0][2],
+                                       False, "config 6 segment 0")
+    err_1, _, _, _ = check_k5(walker.bvh, closest[1][1], closest[1][2], False,
+                              "config 6 segment 1")
+    err_a, res_a, plain_a, _ = check_k5(walker.bvh, shadow[0][1], shadow[0][2], True,
+                                        "config 6 SLS shadow rays")
     c7_scene, c7_cam, c7_env = strands_scene(C7, C7)
     c7_walker = c7_scene.build(device, build_bvh=True)
     c7_cfg = RenderConfig(width=C7, height=C7, bounces=C7_BOUNCES)
@@ -1302,8 +1404,8 @@ def lbvh_phase(device, totals):
             and float(c7_frame.color[..., :3].std()) > 0.01):
         raise AssertionError("the config-7 walker frame is not finite and varied")
     c7_first = [c for c in capture_k5(render_c7) if not c[0]][0]
-    err_7, _, _ = check_k5(c7_walker.bvh, c7_first[1], c7_first[2], False,
-                           "config 7 segment 0")
+    err_7, _, _, _ = check_k5(c7_walker.bvh, c7_first[1], c7_first[2], False,
+                              "config 7 segment 0")
 
     # phase 16: K5 against K3 on the same rays, and K5's bounds
     print("phase 16: K5 vs K3 on the same rays")
@@ -1326,7 +1428,10 @@ def lbvh_phase(device, totals):
               f"the final best t (actual: {int(res[2][0].sum())} and "
               f"{int(res[2][1].sum())}), {nbytes / 1e6:.1f} MB of distinct nodes, "
               f"rows and ray planes; bound {b:.4f} ms by {by}")
-        rows[name] = (err, ms, plain_ms, b, by)
+        work = {"node visits a ray": float(res[2][0].double().mean()),
+                "row tests a ray": float(res[2][1].double().mean()),
+                "floor node visits a ray": visits / n, "floor row tests a ray": tests / n}
+        rows[name] = ((err, ms, plain_ms, b, by), work)
     return rows, k1_c6
 
 
@@ -1568,6 +1673,9 @@ def illumination_phase(device, totals, render_1080p, frame_1080p, rays_1080p):
           f"p99 {_quantile(dd, 0.99):.3g}")
     if _quantile(d, 0.99) >= PROBE_Q99 or _quantile(dd, 0.99) >= PROBE_Q99:
         raise AssertionError("the walker's config-4 estimate fails the gate")
+    first = capture_k5(lambda: estimate_illumination_counted(
+        walker, env_s, config, probes, seed=C4_SEED))[0]
+    check_k5(walker.bvh, first[1], first[2], first[0], "config 4's first launch")
     del walker, est_w
 
     # K6 against its plain version; K1 on dead rays inside its launch
@@ -2178,8 +2286,8 @@ def main() -> int:
             raise AssertionError("card and CPU disagree on live rays")
 
     # phases 11, 12: the instanced paths on K4
-    c6_err, c6_ms, c6_plain_ms, c6_bound, c6_by = canopy_phase(device, totals)
-    f_err, f_ms, f_plain_ms, f_bound, f_by, f_rays = forest_phase(device, totals)
+    c6_err, c6_ms, c6_plain_ms, c6_bound, c6_by, c6_work = canopy_phase(device, totals)
+    f_err, f_ms, f_plain_ms, f_bound, f_by, f_rays, f_work = forest_phase(device, totals)
     # phases 13-16: config 6 (and config 7) on the LBVH walker, K5
     k5, k1_c6 = lbvh_phase(device, totals)
     # phases 17-19: BASELINE config 4 (the illumination estimator) and K6
@@ -2222,15 +2330,25 @@ def main() -> int:
                  f_ms, f_plain_ms, f_bound, f_by),
              shape=f"forest, {FOREST_INST} x {FOREST_TRIS} triangles, "
                    f"{C6 * C6} rays; plain_ms on {f_rays} of them (every "
-                   f"{FOREST_STRIDE}th)"),
+                   f"{FOREST_STRIDE}th)",
+             shapes={"forest": {"ms": f_ms, "bound_ms": f_bound, "bound_by": f_by,
+                                "work": f_work},
+                     "canopy": {"ms": c6_ms, "plain_ms": c6_plain_ms,
+                                "bound_ms": c6_bound, "bound_by": c6_by,
+                                "work": c6_work}},
+             ptxas=[ptxas.get(f"inst_trace_kernel<{b}>") for b in ("false", "true")]),
         dict(row("bvh_trace_kernel<false>", "bvh.cu",
                  "raytracerfacility_tpu/ops/pallas_trace.py:61",
-                 *k5["bvh_trace_kernel<false>"]),
-             shape=f"config 6 segment 0, {C6 * C6 * C6_FRAMES} rays"),
+                 *k5["bvh_trace_kernel<false>"][0]),
+             shape=f"config 6 segment 0, {C6 * C6 * C6_FRAMES} rays",
+             work=k5["bvh_trace_kernel<false>"][1],
+             ptxas=ptxas.get("bvh_trace_kernel<false>")),
         dict(row("bvh_trace_kernel<true>", "bvh.cu",
                  "raytracerfacility_tpu/ops/pallas_trace.py:61",
-                 *k5["bvh_trace_kernel<true>"]),
-             shape=f"config 6 SLS shadow rays, {C6 * C6 * C6_FRAMES} lanes"),
+                 *k5["bvh_trace_kernel<true>"][0]),
+             shape=f"config 6 SLS shadow rays, {C6 * C6 * C6_FRAMES} lanes",
+             work=k5["bvh_trace_kernel<true>"][1],
+             ptxas=ptxas.get("bvh_trace_kernel<true>")),
         dict(row("block_perm_kernel", "perm.cu",
                  "raytracerfacility_tpu/ops/pallas_seg.py:834", k6_err,
                  *(k6["config 4"][k] for k in ("ms", "plain_ms", "bound_ms",

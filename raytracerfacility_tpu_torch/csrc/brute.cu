@@ -52,6 +52,8 @@ struct BruteBest {
 struct BruteRows {
   const float* rows;
   using Best = BruteBest;
+  static constexpr bool kSkipInverted = false;
+  static constexpr bool kChunkGroups = false;
   __device__ static float id(const BruteBest& b) { return b.id; }
   __device__ __forceinline__ bool probe(int row, float kind, const SweepRay& r,
                                         float& t, float& u, float& v,

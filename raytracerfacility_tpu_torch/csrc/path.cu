@@ -55,6 +55,8 @@ __device__ __forceinline__ void store_aov(float* aov, int stride, int i,
 struct TriRows20 {
   const float* rows;
   using Best = Hit;
+  static constexpr bool kSkipInverted = false;
+  static constexpr bool kChunkGroups = false;
   __device__ static float id(const Hit& h) { return h.pid; }
   __device__ __forceinline__ bool probe(int row, float, const SweepRay& r,
                                         float& t, float& u, float& v,

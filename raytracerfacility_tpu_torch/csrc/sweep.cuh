@@ -1,6 +1,7 @@
 // The warp-cooperative front-to-back sweep over a Morton-packed primitive
-// table, shared by K1 (path.cu seg_segment_kernel, 20-column triangle rows)
-// and K3 (brute.cu brute_trace_kernel, 12-column triangle and curve rows).
+// table, shared by K1 (path.cu seg_segment_kernel, 20-column triangle rows),
+// K3 (brute.cu brute_trace_kernel, 12-column triangle and curve rows) and
+// K4 (inst.cu inst_trace_kernel, one instance's object-space rows a sweep).
 // ops/sweep.py emulates it step for step (order "warp"), counters included.
 //
 // The TPU kernels these replace (pallas_seg.py:254, pallas_brute.py:201)
@@ -10,7 +11,9 @@
 // the order is the warp's:
 //
 // 1. Keys. Every live lane tests the slab of every chunk at its initial
-//    best t. A chunk's key is the least entry max(near, tmin) over the
+//    best t (a table with chunk-group boxes, K4's, first tests the group's
+//    box, and only lanes that enter it test its chunks; a group no lane
+//    enters is passed over). A chunk's key is the least entry max(near, tmin) over the
 //    lanes that enter it (a warp min on orderable float bits). Entered
 //    chunks go to the warp's list in shared memory as one word each: the
 //    key's high bits over the chunk index, so an unsigned compare orders
@@ -36,7 +39,8 @@
 // result is the lexicographic (t, original id) minimum over accepted rows
 // in any visit order, which a row test decides alone.
 //
-// With kStats a lane counts chunk slabs tested, chunks entered, run slabs
+// With kStats a lane counts chunk slabs tested (group slabs included),
+// chunks entered, run slabs
 // tested, runs entered and rows tested (an any-hit lane on its own stops
 // at its accept), and lane 0 the row iterations its warp executed. A lane that is not live (out of range, dead path, empty
 // window, or an any-hit lane that has its hit) takes part in every warp
@@ -61,6 +65,8 @@ constexpr int kListCap = 1024;  // ops/sweep.py LIST_CAP
 // a run at most this many lanes enter is tested as (ray, row) pairs
 // spread over the warp's lanes instead of one lane a ray
 constexpr int kPairLanes = 16;  // ops/sweep.py PAIR_LANES
+// chunks a chunk-group box bounds, for tables that have them
+constexpr int kChunkGroup = 32;  // ops/sweep.py CHUNK_GROUP
 struct SweepRay {
   float ox, oy, oz, dx, dy, dz, ivx, ivy, ivz, tmin;
 };
@@ -113,13 +119,18 @@ __device__ __forceinline__ void load_row(const float* p, float (&f)[kC]) {
 }
 
 // The boxes of a sweep's table. Its rows come as a Rows type with a Best
-// (whose field t is the lane's best t) and test<kAnyHit>(row, run kind,
-// ray, best), which tests one row, updates best and returns whether the
-// row was accepted.
+// (whose field t is the lane's best t), probe(row, run kind, ray, t, u, v,
+// id), which tests one row, take<kAnyHit>(row, t, u, v, id, best), which
+// records an accepted row, id(best), the id a row's must be below to win a
+// tie in t, kSkipInverted (whether runs with inverted boxes are padding)
+// and kChunkGroups (whether the keys first cull by Boxes::groups).
 struct Boxes {
   const float* subs;    // (rows / sub, kBox)
   const float* chunks;  // (>= nchunks, kBox)
   int nchunks, runs, sub;  // chunks, runs a chunk, rows a run
+  // (ceil(nchunks / kChunkGroup), kBox): each kChunkGroup chunks' box,
+  // read when Rows::kChunkGroups
+  const float* groups;
 };
 
 // Per-lane counters of a kStats sweep (ops/sweep.py STATS order).
@@ -147,9 +158,21 @@ __device__ __forceinline__ void warp_sweep(const Rows& rows, const Boxes& bx,
     // best t, until the list holds kListCap of them
     int count = 0;
     int c = c0;
+    bool in_group = live;
     for (; c < bx.nchunks && count < kListCap; ++c) {
       float near;
-      const bool in = live && slab_pad(bx.chunks + c * kBox, ray, best.t, near);
+      if (Rows::kChunkGroups && (c % kChunkGroup == 0 || c == c0)) {
+        // a group no lane enters is passed over, its chunks untested
+        in_group = live && slab_pad(bx.groups + (c / kChunkGroup) * kBox, ray,
+                                    best.t, near);
+        if (kStats && live) ++st.v[0];
+        if (!__any_sync(kFullMask, in_group)) {
+          c = min(c | (kChunkGroup - 1), bx.nchunks - 1);
+          continue;
+        }
+      }
+      if (Rows::kChunkGroups && kStats && in_group) ++st.v[0];
+      const bool in = in_group && slab_pad(bx.chunks + c * kBox, ray, best.t, near);
       if (!__any_sync(kFullMask, in)) continue;
       // + 0: a -0 entry keys as +0, whatever fmaxf returns for signed zeros
       const uint32_t key = in ? ord_bits(fmaxf(near, ray.tmin) + 0.0f) : kNoWord;
@@ -157,7 +180,7 @@ __device__ __forceinline__ void warp_sweep(const Rows& rows, const Boxes& bx,
       if (lane == 0) list[count] = ((least >> bits) << bits) | (uint32_t)c;
       ++count;
     }
-    if (kStats && live) st.v[0] += c - c0;
+    if (!Rows::kChunkGroups && kStats && live) st.v[0] += c - c0;
     c0 = c;
     __syncwarp();
     // 2. visits, least key first
@@ -188,7 +211,10 @@ __device__ __forceinline__ void warp_sweep(const Rows& rows, const Boxes& bx,
       if (__ballot_sync(kFullMask, in_chunk) == 0u) continue;
       for (int r = c * bx.runs; r < (c + 1) * bx.runs; ++r) {
         const float* box = bx.subs + r * kBox;
-        bool in_run = in_chunk && slab_pad(box, ray, best.t, near);
+        // a table whose padding runs have inverted (empty) boxes, which the
+        // slab test would take for the whole space, skips them
+        bool in_run = in_chunk && (!Rows::kSkipInverted || box[0] <= box[3]) &&
+                      slab_pad(box, ray, best.t, near);
         if (kStats && in_chunk) {
           ++st.v[2];
           st.v[3] += in_run;
@@ -219,7 +245,7 @@ __device__ __forceinline__ void warp_sweep(const Rows& rows, const Boxes& bx,
             bool ok = p < pairs && rows.probe(r * bx.sub + pos, kind, q, t, u, v, jf);
             if (kAnyHit) {
               const float bt = __shfl_sync(kFullMask, best.t, src);
-              const float bid = __shfl_sync(kFullMask, Rows::id(best), src);
+              const float bid = __shfl_sync(kFullMask, rows.id(best), src);
               ok = ok && (t < bt || (t == bt && jf < bid));
             }
             // the least row of each ray's group of bx.sub lanes: closest
@@ -254,7 +280,7 @@ __device__ __forceinline__ void warp_sweep(const Rows& rows, const Boxes& bx,
               if (kAnyHit) {
                 rows.template take<true>(r * bx.sub + gp, gt, gu, gv, gj, best);
                 in_run = in_chunk = live = false;
-              } else if (gt < best.t || (gt == best.t && gj < Rows::id(best))) {
+              } else if (gt < best.t || (gt == best.t && gj < rows.id(best))) {
                 rows.template take<false>(r * bx.sub + gp, gt, gu, gv, gj, best);
               }
             }
@@ -267,7 +293,7 @@ __device__ __forceinline__ void warp_sweep(const Rows& rows, const Boxes& bx,
           if (kStats) ++st.v[4];
           float t, u, v, jf;
           if (rows.probe(r * bx.sub + j, kind, ray, t, u, v, jf) &&
-              (t < best.t || (t == best.t && jf < Rows::id(best)))) {
+              (t < best.t || (t == best.t && jf < rows.id(best)))) {
             rows.template take<kAnyHit>(r * bx.sub + j, t, u, v, jf, best);
             if (kAnyHit) in_run = in_chunk = live = false;
           }

@@ -115,7 +115,7 @@ _ARGTYPES = {
     "path": {"rtf_seg_segment": (10, 7), "rtf_fused_path": (9, 5),
              "rtf_fused_sls": (9, 4)},
     "brute": {"rtf_brute_trace": (14, 5)},
-    "inst": {"rtf_inst_trace": (15, 4)},
+    "inst": {"rtf_inst_trace": (21, 5)},
     "bvh": {"rtf_bvh_trace": (13, 4)},
     "perm": {"rtf_block_perm": (7, 3)},
 }

@@ -19,18 +19,27 @@ result independent of the visit order.
 
 The tables carry the reference's keys with the same arrays (``table``,
 ``sub_aabbs``, ``obj_chunks``, ``inst``, ``step_chunk``, ``step_inst``,
-``step_aabbs``, ``chunk``, ``sub``) and two more that the kernel reads:
+``step_aabbs``, ``chunk``, ``sub``) and four more that the kernel reads:
 ``inst_box`` (I, 8), each instance's world box (the hull of its step
 boxes, i.e. of its object chunk boxes' corners pushed through its
-transform), and ``inst_chunks`` (I, 2) int32, the first object chunk of its
-geometry and the geometry's chunk count.
+transform); ``inst_chunks`` (I, 2) int32, the first object chunk of its
+geometry and the geometry's chunk count; ``inst_perm`` (I,) int32, the
+instances in the Morton order of their world boxes' centres; and
+``group_box`` (ceil(I / 32), 8), the world box of each :data:`GROUP`
+consecutive instances in that order; ``chunk_groups`` (G, 8), the
+object-space box of each :data:`CHUNK_GROUP` consecutive chunks of a
+geometry, and ``inst_chunk_groups`` (I,) int32, the first of its
+geometry's. Results keep the original instance ids.
 
 ``chunk`` must be a multiple of ``sub``. What the reference needs only for
 the TPU is not carried over: the per-tile step order (``_step_order`` over
 ``chunk_order``), the multi-pass TILE_BATCH x W_STEPS dispatch and its
 ``RTF_TPU_INST_W``/``_TB`` knobs, the 8192-ray padding, the dense SMEM
 packing of the records, and the SMEM-derived limits (8192 instance
-records, ``(chunk // sub) % 8 == 0``). The kernel culls per ray instead.
+records, ``(chunk // sub) % 8 == 0``). The kernel orders its work by the
+warp instead: instances front to back under the group boxes, then each
+geometry's chunks front to back (``csrc/inst.cu``; replayed by
+``ops/inst_sweep.py``).
 """
 
 from __future__ import annotations
@@ -49,9 +58,11 @@ from raytracerfacility_tpu_torch.ops.brute import (
 )
 from raytracerfacility_tpu_torch.ops.brute import _trace_plain as _brute_plain
 from raytracerfacility_tpu_torch.ops.math3d import inv_dir
+from raytracerfacility_tpu_torch.ops.sweep import CHUNK_GROUP
 
 TRI_CHUNK = 256  # default rows per object chunk, the first culling level
 SUB = 32  # rows per sub-run, the second culling level
+GROUP = 32  # instances a group box bounds (csrc/inst.cu kGroup)
 COLS = 12  # v0(3) e1(3) e2(3) geometry base + original prim(1) pad(2)
 _BIG = 3.4e38
 # The plain version's instance cull: each world box grows on every side by
@@ -130,6 +141,15 @@ def pack_instanced_tables(geoms, instance_geom, instance_matrices,
     cpad = (-nchunks) % 8
     obj_chunks = _box_rows(torch.cat([clo, torch.full((cpad, 3), _BIG)]),
                            torch.cat([chi, torch.full((cpad, 3), -_BIG)]))
+    # the kernel's chunk groups: each CHUNK_GROUP chunks of a geometry
+    group_lo, group_hi, geom_group0 = [], [], []
+    for c0, nc in zip(geom_chunk0, geom_nchunks):
+        geom_group0.append(sum(x.shape[0] for x in group_lo))
+        for g0 in range(c0, c0 + nc, CHUNK_GROUP):
+            g1 = min(g0 + CHUNK_GROUP, c0 + nc)
+            group_lo.append(clo[g0:g1].min(0, keepdim=True).values)
+            group_hi.append(chi[g0:g1].max(0, keepdim=True).values)
+    chunk_groups = _box_rows(torch.cat(group_lo), torch.cat(group_hi))
 
     instance_geom = np.asarray(instance_geom, np.int32)
     n_inst = instance_geom.shape[0]
@@ -180,6 +200,19 @@ def pack_instanced_tables(geoms, instance_geom, instance_matrices,
     step_aabbs[:s, 3:6] = np.concatenate(s_hi)[perm]
     inst_chunks = np.stack([np.asarray(geom_chunk0, np.int32)[instance_geom],
                             np.asarray(geom_nchunks, np.int32)[instance_geom]], 1)
+    # the kernel's instance order: Morton codes of the world boxes'
+    # centres, and a group box over each GROUP instances in that order
+    centre = torch.from_numpy((box[:, 0:3] + box[:, 3:6]) * np.float32(0.5))
+    inst_perm = torch.argsort(morton_codes(centre, centre.min(0).values,
+                                           centre.max(0).values), stable=True)
+    ngroups = -(-n_inst // GROUP)
+    sorted_box = np.zeros((ngroups * GROUP, 8), np.float32)
+    sorted_box[:, 0:3], sorted_box[:, 3:6] = _BIG, -_BIG
+    sorted_box[:n_inst] = box[inst_perm.numpy()]
+    sorted_box = sorted_box.reshape(ngroups, GROUP, 8)
+    group_box = np.zeros((ngroups, 8), np.float32)
+    group_box[:, 0:3] = sorted_box[:, :, 0:3].min(1)
+    group_box[:, 3:6] = sorted_box[:, :, 3:6].max(1)
 
     def dev(x):
         return torch.as_tensor(x).to(device).contiguous()
@@ -196,6 +229,10 @@ def pack_instanced_tables(geoms, instance_geom, instance_matrices,
         "sub": sub,
         "inst_box": dev(box),
         "inst_chunks": dev(inst_chunks),
+        "inst_perm": dev(inst_perm.to(torch.int32)),
+        "group_box": dev(group_box),
+        "chunk_groups": dev(chunk_groups),
+        "inst_chunk_groups": dev(np.asarray(geom_group0, np.int32)[instance_geom]),
     }
 
 
@@ -294,15 +331,18 @@ def _trace_plain(tables, rays, n: int) -> torch.Tensor:
 # --------------------------------------------------------------------------
 
 _FLOAT_KEYS = ("table", "sub_aabbs", "obj_chunks", "inst", "inst_box")
+_INT_KEYS = ("inst_chunks", "inst_perm", "inst_chunk_groups")
 
 
-def check_tables(tables, device) -> None:
+def check_tables(tables, device) -> int:
     """Raise unless K4's tables are contiguous on ``device`` (float32, and
-    int32 chunk ranges) with the shapes the kernel indexes by, and every
-    instance's chunk range lies inside the table."""
-    ranges = tables["inst_chunks"]
-    for key in _FLOAT_KEYS + ("inst_chunks",):
-        t, want = tables[key], torch.int32 if key == "inst_chunks" else torch.float32
+    int32 chunk ranges and order) with the shapes the kernel indexes by,
+    every instance's chunk range lies inside the table and the order
+    indexes the instances. Returns the most chunks of one geometry."""
+    ranges, perm = tables["inst_chunks"], tables["inst_perm"]
+    keys = _FLOAT_KEYS + ("group_box", "chunk_groups") + _INT_KEYS
+    for key in keys:
+        t, want = tables[key], torch.int32 if key in _INT_KEYS else torch.float32
         if t.device != device or t.dtype != want or not t.is_contiguous():
             raise ValueError(f"instanced table {key} must be contiguous {want} "
                              f"on {device}, got {t.dtype} on {t.device}")
@@ -316,47 +356,80 @@ def check_tables(tables, device) -> None:
             or tables["obj_chunks"].shape[0] < nchunks
             or tables["inst"].shape[1] != 16
             or tables["inst_box"].shape != (n_inst, 8)
-            or ranges.shape != (n_inst, 2)):
+            or ranges.shape != (n_inst, 2) or perm.shape != (n_inst,)
+            or tables["group_box"].shape != (-(-n_inst // GROUP), 8)
+            or tables["chunk_groups"].shape[1] != 8
+            or tables["inst_chunk_groups"].shape != (n_inst,)):
         raise ValueError("instanced tables do not match: " + str(
-            {k: tuple(tables[k].shape) for k in _FLOAT_KEYS + ("inst_chunks",)}))
-    if n_inst and (int(ranges.min()) < 0
-                   or int((ranges[:, 0] + ranges[:, 1]).max()) > nchunks):
+            {k: tuple(tables[k].shape) for k in keys}))
+    if not n_inst:
+        return 0
+    first = tables["inst_chunk_groups"].to(torch.int64)
+    lo, end, most, p_lo, p_hi, g_lo, g_end = torch.stack([
+        ranges.min(), (ranges[:, 0] + ranges[:, 1]).max(), ranges[:, 1].max(),
+        perm.min(), perm.max(), first.min(),
+        (first + (ranges[:, 1] + CHUNK_GROUP - 1) // CHUNK_GROUP).max()]).tolist()
+    if lo < 0 or end > nchunks:
         raise ValueError("an instance's chunk range lies outside the table")
+    if p_lo < 0 or p_hi >= n_inst:
+        raise ValueError("inst_perm indexes past the instances")
+    if g_lo < 0 or g_end > tables["chunk_groups"].shape[0]:
+        raise ValueError("an instance's chunk groups lie outside the table")
+    return most
 
 
-def trace_planes(tables, planes, n: int) -> torch.Tensor:
+def trace_planes(tables, planes, n: int, stats: bool = False):
     """Trace the first ``n`` rays of eight float32 planes (origin xyz,
     direction xyz, tmin, tmax; each contiguous and at least ``n`` long)
     against the instanced ``tables``. Returns (5, n) float32 planes: t
     (tmax on a miss), global prim, instance (both -1 on a miss), u, v.
+    With ``stats`` it returns (planes, (8, n) int32 counters in
+    ``inst_sweep.STATS`` order, (ceil(n / 32),) int32 row iterations a
+    warp): the kernel's own on the card, ``inst_sweep.sweep_instanced``'s
+    on the CPU.
 
     Replaces ``raytracerfacility_tpu/ops/pallas_inst.py:248
-    _make_inst_kernel``. On the H100 the kernel is bound by the rows each
-    ray tests after its culling (48 bytes and about 55 operations a row):
-    one thread per ray culls each instance by its world box, moves into
-    the object space of the instances it enters, and culls there by the
-    object chunk and 32-row run boxes, all against its own best t."""
+    _make_inst_kernel``. On the H100 the kernel is bound by the rows its
+    warps test after culling (48 bytes and about 55 operations a row). A
+    warp keys the instances its rays enter under the group boxes by their
+    least entry and visits them front to back; in each, the rays that
+    enter it move into object space and the warp sweeps the geometry's
+    chunks and 32-row runs front to back (``csrc/sweep.cuh``), each lane
+    culling against its own best t."""
     device = planes[0].device
     if device.type == "cpu":
-        return _trace_plain(tables, torch.stack([p[:n] for p in planes]), n)
+        out = _trace_plain(tables, torch.stack([p[:n] for p in planes]), n)
+        if not stats:
+            return out
+        from raytracerfacility_tpu_torch.ops import inst_sweep
+
+        p = [x[:n] for x in planes]
+        _, counts, warp_rows = inst_sweep.sweep_instanced(
+            tables, torch.stack(p[0:3], 1), torch.stack(p[3:6], 1), p[6], p[7])
+        return out, counts, warp_rows
     if device.type != "cuda":
         raise ValueError(f"no kernel for device {device}")
-    check_tables(tables, device)
+    most = check_tables(tables, device)
     check_planes(planes, n, device)
-    if 5 * n >= 2**31:
+    if 8 * n >= 2**31:
         raise ValueError(f"{n} rays exceed the kernel's 32-bit offsets")
     out = torch.empty((5, n), dtype=torch.float32, device=device)
-    if n == 0:
-        return out
-    err = kernels.library("inst").rtf_inst_trace(
-        *(p.data_ptr() for p in planes), out.data_ptr(),
-        *(tables[k].data_ptr() for k in _FLOAT_KEYS),
-        tables["inst_chunks"].data_ptr(), n, tables["inst"].shape[0],
-        tables["chunk"], tables["sub"],
-        ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream))
-    kernels.LAUNCHES["inst_trace_kernel"] += 1
-    kernels.check(err, "inst_trace_kernel")
-    return out
+    counts = (torch.empty((8, n), dtype=torch.int32, device=device),
+              torch.empty((-(-n // 32),), dtype=torch.int32, device=device)) \
+        if stats else (None, None)
+    if n > 0:
+        err = kernels.library("inst").rtf_inst_trace(
+            *(p.data_ptr() for p in planes), out.data_ptr(),
+            *(tables[k].data_ptr() for k in _FLOAT_KEYS),
+            tables["inst_chunks"].data_ptr(), tables["group_box"].data_ptr(),
+            tables["inst_perm"].data_ptr(), tables["chunk_groups"].data_ptr(),
+            tables["inst_chunk_groups"].data_ptr(),
+            *(c.data_ptr() if stats else None for c in counts),
+            n, tables["inst"].shape[0], tables["chunk"], tables["sub"], most,
+            ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream))
+        kernels.LAUNCHES["inst_trace_kernel"] += 1
+        kernels.check(err, "inst_trace_kernel")
+    return (out, *counts) if stats else out
 
 
 def trace_closest_instanced(tables, origin, direction, tmin, tmax):

@@ -1,5 +1,6 @@
-"""Plain PyTorch emulation of the culled sweep that K1 and K3 share
-(``csrc/sweep.cuh``), with its work counters.
+"""Plain PyTorch emulation of the culled sweep that K1, K3 and K4 share
+(``csrc/sweep.cuh``; K4's instance level is ``ops/inst_sweep.py``), with
+its work counters.
 
 :func:`sweep` replays, for rays in warps of 32 consecutive lanes, the
 chunk, run and row decisions of one of two designs, step for step:
@@ -46,6 +47,7 @@ STATS = ("chunk slabs tested", "chunks entered", "run slabs tested",
 CULL_PAD = 1.0 / 512.0  # csrc/sweep.cuh kCullPad
 LIST_CAP = 1024  # csrc/sweep.cuh kListCap: list words a warp, a round
 PAIR_LANES = 16  # csrc/sweep.cuh kPairLanes
+CHUNK_GROUP = 32  # csrc/sweep.cuh kChunkGroup
 WARP = 32
 _NO_WORD = 0xFFFFFFFF
 LAYOUTS = ("k1", "k3")  # K1's 20-column rows, K3's 12-column rows
@@ -115,15 +117,22 @@ def _test_rows(layout, rows, o, d, tmin):
 
 def sweep(table, subs, chunks, chunk: int, o, d, tmin, tmax, live,
           layout: str, any_hit: bool = False, order: str = "warp",
-          pad: bool = True):
+          pad: bool = True, best0=None, skip_inverted: bool = False,
+          groups=None):
     """Replay the culled sweep over ``table`` (K1's 20-column or K3's
     12-column rows), ``subs`` (run boxes, K3's run kind in column 6) and
     ``chunks`` for rays ``o``, ``d`` (n, 3) with windows ``tmin``, ``tmax``
     (n,) (K1: tmax = 1e20) and ``live`` (n,) bool, lanes in warps of 32 in
-    ray order. Returns (record: dict of (n,) tensors, K1 t/nx/ny/nz/mid/id,
-    K3 t/id/u/v, and "rounds", the lane's warp's rounds; counters (5, n)
-    int32 in :data:`STATS` order; warp row iterations (ceil(n / 32),)
-    int32)."""
+    ray order. ``best0``, a record as returned, starts the lanes from it
+    instead of tmax (K4 sweeps an instance from the best so far, its id
+    the one a row must be below to win a tie). ``skip_inverted`` skips
+    runs whose box is inverted (K4's padding runs); ``groups``, the boxes
+    of each :data:`CHUNK_GROUP` chunks, cull the keys first (K4: a lane
+    keys a group's chunks only if it enters the group's box, and a group
+    no lane enters is passed over; its slab tests count as chunk slabs). Returns (record: dict
+    of (n,) tensors, K1 t/nx/ny/nz/mid/id, K3 t/id/u/v, and "rounds", the
+    lane's warp's rounds; counters (5, n) int32 in :data:`STATS` order;
+    warp row iterations (ceil(n / 32),) int32)."""
     if order not in ("warp", "index") or layout not in LAYOUTS:
         raise ValueError(f"order {order!r} / layout {layout!r}")
     dev = o.device
@@ -138,7 +147,10 @@ def sweep(table, subs, chunks, chunk: int, o, d, tmin, tmax, live,
 
     o, d, tmin = padded(o), padded(d), padded(tmin)
     live = padded(live, False).clone()
-    best = _best_init(layout, padded(tmax, brute.DEAD))
+    if best0 is None:
+        best = _best_init(layout, padded(tmax, brute.DEAD))
+    else:
+        best = {k: padded(v) for k, v in best0.items() if k != "rounds"}
     iv = inv_dir(d)
     nchunks = table.shape[0] // chunk
     sub = table.shape[0] // subs.shape[0]
@@ -171,6 +183,11 @@ def sweep(table, subs, chunks, chunk: int, o, d, tmin, tmax, live,
         ent, near = slab(chunks[None, :nchunks], o[:, None], iv[:, None],
                          tmin[:, None], best["t"][:, None], pad)
         ent &= live[:, None]
+        if groups is not None:
+            g_ent, _ = slab(groups[None], o[:, None], iv[:, None], tmin[:, None],
+                            best["t"][:, None], pad)
+            g_ent &= live[:, None]
+            ent &= g_ent[:, cidx // CHUNK_GROUP]
         entered = (ent.view(nw, WARP, nchunks).any(1) & (cidx >= start[:, None])
                    & todo[:, None])
         full = entered & (entered.cumsum(1) == cap)
@@ -182,7 +199,20 @@ def sweep(table, subs, chunks, chunk: int, o, d, tmin, tmax, live,
                               _NO_WORD)
             least = key.view(nw, WARP, nchunks).min(1).values
             words = torch.where(entered, ((least >> bits) << bits) | cidx, _NO_WORD)
-            stats[0] += (end - start).repeat_interleave(WARP) * live
+            if groups is None:
+                stats[0] += (end - start).repeat_interleave(WARP) * live
+            else:
+                # groups that overlap [start, end) are tested by every live
+                # lane; the chunks there of a group some lane enters, by
+                # the lanes that enter it
+                gi = torch.arange(groups.shape[0], device=dev)
+                lo_c = torch.maximum(gi * CHUNK_GROUP, start[:, None])
+                hi_c = torch.minimum((gi + 1) * CHUNK_GROUP, end[:, None])
+                span = torch.clamp(hi_c - lo_c, min=0)
+                warp_g = g_ent.view(nw, WARP, -1).any(1) & (span > 0)
+                lane_w = torch.arange(npad, device=dev) // WARP
+                stats[0] += live * (span > 0).sum(1)[lane_w]
+                stats[0] += (g_ent & warp_g[lane_w]).mul(span[lane_w]).sum(1)
         else:
             words = torch.where(entered, cidx, _NO_WORD)
         start = end
@@ -210,15 +240,20 @@ def sweep(table, subs, chunks, chunk: int, o, d, tmin, tmax, live,
                 stats[0, lanes] += live[lanes]
             stats[1, lanes] += in_chunk
             # runs no lane enters at the chunk's entry best t stay unentered
-            cand, _ = slab(subs[c[:, None] * runs + run_j], lo_[:, None], io_[:, None],
+            run_box = subs[c[:, None] * runs + run_j]
+            cand, _ = slab(run_box, lo_[:, None], io_[:, None],
                            tm_[:, None], best["t"][lanes][:, None], pad)
             cand &= in_chunk[:, None]
+            if skip_inverted:
+                cand &= run_box[..., 0] <= run_box[..., 3]
             tested = torch.where(in_chunk, runs, 0)
             for j in torch.nonzero(cand.any(0))[:, 0].tolist():
                 r = c * runs + j
                 bt = best["t"][lanes]
                 in_run, _ = slab(subs[r], lo_, io_, tm_, bt, pad)
                 in_run &= in_chunk
+                if skip_inverted:
+                    in_run &= subs[r, 0] <= subs[r, 3]
                 if not bool(in_run.any()):
                     continue
                 stats[3, lanes] += in_run

@@ -1,5 +1,5 @@
-"""Stackless walk of the threaded LBVH: plain PyTorch version and the
-wrapper of the CUDA walker (K5).
+"""Walks of the threaded LBVH: the reference's skip-link walk, the
+ordered walk of the CUDA walker K5, and K5's wrapper.
 
 Port of ``raytracerfacility_tpu/ops/traverse.py``: ``_tri_test``,
 ``trace_closest_bvh`` and ``trace_any_bvh`` (the unused ``geometry``
@@ -10,17 +10,22 @@ that is ``bvh_trace_kernel<any_hit>`` in ``csrc/bvh.cu``, launched by
 :func:`trace_planes`, which reads the wavefront engine's state planes in
 place as ``ops/brute.py::trace_planes`` does.
 
-Semantics, the reference's exactly: every ray starts at the root; at a
-node whose box it enters (``max(near, tmin) <= min(far, best)``, best the
-current best t for closest hit and tmax for any-hit) it descends to
-``node + 1`` unless the node is a leaf, which tests its primitives in
-order; otherwise it jumps to the skip link. Closest hit keeps a hit when
-``t > tmin`` and ``t < best | (t == best & prim < best_prim)``, which ties
-exactly to the lowest original primitive; any-hit stops at the first
-primitive that accepts in (tmin, tmax). Curve rows (kind 1) take
-``intersect_round_cone(..., tmin, 3.4e38)``. A ray takes at most
-:data:`MAX_STEPS` node visits (the reference's while-loop bound with one
-step an iteration and no unrolled prefix). ``trace_collect_same_instance``
+The reference's semantics: closest hit keeps a hit when ``t > tmin`` and
+``t < best | (t == best & prim < best_prim)``, which ties exactly to the
+lowest original primitive; any-hit reports whether a primitive accepts in
+(tmin, tmax). Curve rows (kind 1) take ``intersect_round_cone(..., tmin,
+3.4e38)``. :func:`_walk_plain` walks as the reference does: every ray
+starts at the root; at a node whose box it enters (``max(near, tmin) <=
+min(far, best)``, best the current best t for closest hit and tmax for
+any-hit) it descends to ``node + 1`` unless the node is a leaf, which
+tests its primitives in order; otherwise it jumps to the skip link; at
+most :data:`MAX_STEPS` node visits (the reference's while-loop bound).
+
+:func:`_walk_ordered` is the walk K5's closest hit makes, step for step:
+near first with a stack (``csrc/bvh.cu`` says why), the best-t cull padded
+by :data:`CULL_PAD`. Its closest hit is the reference's wherever a box's
+rounding does not decide a row. K5's any-hit walks the reference's order,
+so :func:`_walk_plain` is its replay. ``trace_collect_same_instance``
 serves subsurface only and is not ported.
 """
 
@@ -42,6 +47,8 @@ from raytracerfacility_tpu_torch.ops.curve import intersect_round_cone
 from raytracerfacility_tpu_torch.ops.math3d import inv_dir
 
 MAX_STEPS = 8192  # node visits a ray may take (ref traverse.py:49-51)
+STACK = 64  # csrc/bvh.cu kStack: >= the radix tree's depth (ops/bvh.py)
+CULL_PAD = 1.0 / 512.0  # csrc/bvh.cu kNodePad
 _BIG = 3.4e38
 _START_MASK = (1 << 27) - 1
 
@@ -65,9 +72,10 @@ def _tri_test(rows, o, d, tmin, has_curves: bool):
 
 def _walk_plain(bvh: BVH, rays, n: int, any_hit: bool, stats: bool = False,
                 touched=None):
-    """Plain version of :func:`trace_planes` (``rays`` the (8, n) planes):
-    all rays walk in lockstep, one node a step, as the reference's
-    while-loop does; each step handles only the rays still walking, which
+    """The reference's skip-link walk (``rays`` the (8, n) planes): K5's
+    any-hit replay, and the oracle K5's closest hit and
+    :func:`_walk_ordered` are held to. All rays walk in
+    lockstep, one node a step, as the reference's while-loop does; each step handles only the rays still walking, which
     changes no ray's arithmetic. ``touched``, a pair of bool tensors over
     the node and row tables, is set where any ray loads a node or row."""
     dev = rays.device
@@ -135,6 +143,100 @@ def _walk_plain(bvh: BVH, rays, n: int, any_hit: bool, stats: bool = False,
     return torch.stack([best, bu, bv]), prim.to(torch.int32), counts
 
 
+def _enter(row, o, iv, tmin, best):
+    """K5's box test of node rows ``row`` (R, 8) against the best t, the
+    entry padded: (entered, key) (``csrc/bvh.cu`` enter)."""
+    t1 = (row[:, 0:3] - o) * iv
+    t2 = (row[:, 3:6] - o) * iv
+    near = torch.minimum(t1, t2).amax(1)
+    far = torch.maximum(t1, t2).amin(1)
+    key = torch.maximum(near - near.abs() * CULL_PAD, tmin)
+    return (torch.maximum(near, tmin) <= far) & (key <= best), key
+
+
+def _walk_ordered(bvh: BVH, rays, n: int, stats: bool = False):
+    """K5's closest-hit walk in plain PyTorch, step for step (``csrc/bvh.cu``): at an
+    internal node both children (``node + 1`` and its skip link) are
+    tested, the ray descends into the entered one with the smaller key
+    (the left on a tie) and pushes the other; a leaf tests its rows in
+    order; a pop drops an entry whose key is past the best t. Rays run in
+    lockstep, each on its own stack. Returns what :func:`trace_planes`
+    returns; the counters are node box tests and row tests."""
+    dev = rays.device
+    o, d = rays[0:3, :n].T, rays[3:6, :n].T
+    tmin, tmax = rays[6, :n], rays[7, :n]
+    inv = inv_dir(d)
+    nodes, tris = bvh.nodes, bvh.tris
+    last = tris.shape[0] - 1
+    meta = decode_int_column(nodes[:, 7]).to(torch.int64)
+    skip = decode_int_column(nodes[:, 6]).to(torch.int64)
+    best, prim = tmax.clone(), torch.full((n,), -1, dtype=torch.int64, device=dev)
+    bu, bv = torch.zeros_like(best), torch.zeros_like(best)
+    visits = torch.ones(n, dtype=torch.int64, device=dev)
+    tests = torch.zeros(n, dtype=torch.int64, device=dev)
+    # item: an internal node (>= 0), a leaf as -1 - meta, or _DONE (pop)
+    done = torch.iinfo(torch.int64).max
+
+    def item_of(k):
+        return torch.where(meta[k] != 0, -1 - meta[k], k)
+
+    zero = torch.zeros(n, dtype=torch.int64, device=dev)
+    ent, _ = _enter(nodes[zero], o, inv, tmin, best)
+    item = torch.where(ent, item_of(zero), done)
+    stack_item = torch.zeros((n, STACK), dtype=torch.int64, device=dev)
+    stack_key = torch.zeros((n, STACK), dtype=torch.float32, device=dev)
+    sp = torch.zeros(n, dtype=torch.int64, device=dev)
+    walking = torch.ones(n, dtype=torch.bool, device=dev)
+    while True:
+        while True:  # pops, dropping entries past the best t
+            r = torch.nonzero(walking & (item == done) & (sp > 0))[:, 0]
+            if r.numel() == 0:
+                break
+            sp[r] -= 1
+            key, it = stack_key[r, sp[r]], stack_item[r, sp[r]]
+            take = key <= best[r]
+            item[r[take]] = it[take]
+        walking &= item != done
+        r = torch.nonzero(walking & (item < 0))[:, 0]
+        if r.numel():  # leaves: their rows in order
+            m = -1 - item[r]
+            cnt, start = m >> 27, m & _START_MASK
+            bt, bp, tu, tv = best[r], prim[r], bu[r], bv[r]
+            for k in range(bvh.leaf_size):
+                live = k < cnt
+                rows = tris[torch.clamp(start + k, max=last)]
+                ok, t, u, v, p = _tri_test(rows, o[r], d[r], tmin[r], bvh.has_curves)
+                ok = ok & live & ((t < bt) | ((t == bt) & (p < bp)))
+                tests[r] += live
+                bt, bp = torch.where(ok, t, bt), torch.where(ok, p, bp)
+                tu, tv = torch.where(ok, u, tu), torch.where(ok, v, tv)
+            best[r], prim[r], bu[r], bv[r] = bt, bp, tu, tv
+            item[r] = done
+        r = torch.nonzero(walking & (item >= 0) & (item != done))[:, 0]
+        if r.numel():  # internal nodes: both children
+            capped = visits[r] >= MAX_STEPS
+            walking[r[capped]] = False
+            r = r[~capped]
+            li = item[r] + 1
+            ri = skip[li]
+            visits[r] += 2
+            el, kl = _enter(nodes[li], o[r], inv[r], tmin[r], best[r])
+            er, kr = _enter(nodes[ri], o[r], inv[r], tmin[r], best[r])
+            l_item, r_item = item_of(li), item_of(ri)
+            both, r_first = el & er, kr < kl
+            pb = r[both]
+            stack_item[pb, sp[pb]] = torch.where(r_first, l_item, r_item)[both]
+            stack_key[pb, sp[pb]] = torch.where(r_first, kl, kr)[both]
+            sp[pb] += 1
+            item[r] = torch.where(
+                both, torch.where(r_first, r_item, l_item),
+                torch.where(el, l_item, torch.where(er, r_item, done)))
+        if not bool(walking.any()):
+            break
+    counts = torch.stack([visits, tests]).to(torch.int32) if stats else None
+    return torch.stack([best, bu, bv]), prim.to(torch.int32), counts
+
+
 def check_bvh(bvh: BVH, device) -> None:
     """Raise unless the BVH tables are contiguous, 16-byte aligned float32
     on ``device`` with 8-column nodes and 12-column rows (the kernel loads
@@ -155,20 +257,24 @@ def trace_planes(bvh: BVH, planes, n: int, any_hit: bool, stats: bool = False):
     direction xyz, tmin, tmax; each contiguous, at least ``n`` long, e.g.
     rows of the wavefront engine's state) through ``bvh``. Returns ((3, n)
     float32 planes t, u, v; (n,) int32 original prim, -1 on a miss; with
-    ``stats``, (2, n) int32 node visits and primitive tests of each ray,
-    else None). A miss keeps t = tmax and u = v = 0; any-hit reports its
-    first accepted primitive.
+    ``stats``, (2, n) int32 node box tests and primitive tests of each
+    ray, else None). A miss keeps t = tmax and u = v = 0; any-hit reports
+    the first primitive its walk accepts.
 
     Replaces ``raytracerfacility_tpu/ops/pallas_trace.py:61
-    _traversal_kernel``, one thread a ray. On the H100 it is bound by its
-    node loads: each step's 32-byte node row depends on the last, and on a
-    1M-primitive scene the 66 MB node table does not fit the 50 MB L2. The
-    design keeps the walk stackless (no local memory), loads a node as two
-    float4 and a row as three, and lets each thread stop on its own."""
+    _traversal_kernel``, one thread a ray. The closest hit walks near first
+    with a stack (:func:`_walk_ordered`, its plain version): on the H100 it
+    waits on node loads (on a 1M-primitive scene the 66 MB node table does
+    not fit the 50 MB L2), so it tests both children of a node at once,
+    with the loads of a level issued together, and reaches near hits
+    first. Any-hit walks the reference's skip links (:func:`_walk_plain`,
+    its plain version)."""
     device = planes[0].device
     if device.type == "cpu":
-        return _walk_plain(bvh, torch.stack([p[:n] for p in planes]), n, any_hit,
-                           stats)
+        rays = torch.stack([p[:n] for p in planes])
+        if any_hit:
+            return _walk_plain(bvh, rays, n, True, stats)
+        return _walk_ordered(bvh, rays, n, stats)
     if device.type != "cuda":
         raise ValueError(f"no kernel for device {device}")
     check_bvh(bvh, device)

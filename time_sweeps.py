@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""Time the port's sweep kernels K1 (``seg_segment_kernel``) and K3
-(``brute_trace_kernel``) at the launches ``chip_smoke.py`` times them, for
+"""Time the port's trace kernels K1 (``seg_segment_kernel``), K3
+(``brute_trace_kernel``), K4 (``inst_trace_kernel``) and K5
+(``bvh_trace_kernel``) at the launches ``chip_smoke.py`` times them, for
 the port package of one tree, so that two trees compare inside one call:
 
-    python3 time_sweeps.py [--tree DIR] [--reps 5]
+    python3 time_sweeps.py [--tree DIR] [--reps 5] [--only K4,K5]
 
 ``--tree`` names a checkout whose ``raytracerfacility_tpu_torch`` is
 imported (default: this file's own); its kernels build into that tree's
@@ -11,10 +12,14 @@ imported (default: this file's own); its kernels build into that tree's
 1 (K1); BASELINE config 4's first presorted launch (K1); config 6's first
 two segmented launches at 512x512 x 2 frames (K1); config 7's first launch at
 512x512 x 8 frames (K3 closest) and its SingleLightSource shadow rays (K3
-any-hit). Each time is the median of ``--reps`` CUDA-event timings of one
-launch (K1's inputs are cloned inside the window, as ``chip_smoke.py``
-does). Needs one CUDA device; prints the card's ``nvidia-smi`` name and
-power limit, then one JSON line.
+any-hit); the forest (1,024 x 262,144 triangles) and the config-6 canopy
+under 512x512 primary rays (K4); on ``build_bvh=True`` scenes, config 6's
+first walker launch at 512x512 x 2 frames and its SingleLightSource shadow
+rays, config 7's first walker launch at 2 frames and config 4's first
+(K5). ``--only`` keeps the named kernels' shapes. Each time is the median
+of ``--reps`` CUDA-event timings of one launch (K1's inputs are cloned
+inside the window, as ``chip_smoke.py`` does). Needs one CUDA device;
+prints the card's ``nvidia-smi`` name and power limit, then one JSON line.
 """
 
 from __future__ import annotations
@@ -86,7 +91,9 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--tree", default=str(pathlib.Path(__file__).resolve().parent))
     ap.add_argument("--reps", type=int, default=5)
+    ap.add_argument("--only", default="K1,K3,K4,K5")
     args = ap.parse_args()
+    only = set(args.only.split(","))
     sys.path.insert(0, str(pathlib.Path(args.tree).resolve()))
 
     import torch
@@ -94,7 +101,129 @@ def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("time_sweeps: no CUDA device")
     from raytracerfacility_tpu_torch import kernels
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=True, timeout=60).stdout.strip().splitlines()[0]
+    print(smi)
+    kernels.build()
+    dev = torch.device("cuda", 0)
+    ms = {}
+    if "K1" in only:
+        time_k1_shapes(args, dev, ms)
+    if "K3" in only:
+        time_k3_shapes(args, dev, ms)
+    if "K4" in only:
+        time_k4_shapes(args, dev, ms)
+    if "K5" in only:
+        time_k5_shapes(args, dev, ms)
+    print(json.dumps({"tree": args.tree, "card": smi, "torch": torch.__version__,
+                      "ms": {k: v[0] for k, v in ms.items()},
+                      "times": {k: v[1] for k, v in ms.items()}}))
+    return 0
+
+
+def _primary_rays(cam, device, width=512, height=512):
+    """One frame of camera rays (frame 0's RNG), as ``chip_smoke.py``
+    makes them for K4."""
+    import torch
+
+    from raytracerfacility_tpu_torch.ops.camera import generate_camera_rays
+    from raytracerfacility_tpu_torch.ops.rng import lcg_init
+
+    iy, ix = torch.meshgrid(
+        torch.arange(height, dtype=torch.float32, device=device),
+        torch.arange(width, dtype=torch.float32, device=device), indexing="ij")
+    rng = lcg_init((ix + width * iy).to(torch.int64),
+                   torch.zeros((), dtype=torch.int64, device=device))
+    _, o, d = generate_camera_rays(cam.state(device), rng, ix, iy, width, height)
+    return o.reshape(-1, 3), d.reshape(-1, 3)
+
+
+def time_k4_shapes(args, dev, ms):
+    """K4 on the forest of scripts/bench_instanced.py and the config-6
+    canopy, 512x512 primary rays each."""
+    import numpy as np
+    import torch
+
+    from raytracerfacility_tpu_torch.ops import brute, inst
+    from raytracerfacility_tpu_torch.scene.builder import compile_shared_instanced
+    from raytracerfacility_tpu_torch.scenes import canopy_scene, forest
+
+    geom, mats, *rays = forest(1024, 262144)
+    tables = inst.pack_instanced_tables([geom], np.zeros(1024, np.int32), mats,
+                                        chunk=512, sub=32, device=dev)
+    planes = brute._planes(*(torch.from_numpy(x).to(dev) for x in rays))[0]
+    ms["K4 forest"] = _median_ms(lambda: inst.trace_planes(
+        tables, planes, planes[0].shape[0]), args.reps)
+    scene, cam, _ = canopy_scene(512, 512)
+    tables = compile_shared_instanced(scene, dev)
+    o, d = _primary_rays(cam, dev)
+    planes = brute._planes(o, d, 1e-3, 1e9)[0]
+    ms["K4 canopy"] = _median_ms(lambda: inst.trace_planes(
+        tables, planes, planes[0].shape[0]), args.reps)
+
+
+def time_k5_shapes(args, dev, ms):
+    """K5 on the first walker launch of config 6 (Scene and SLS), config 7
+    and config 4, each scene compiled with ``build_bvh=True``."""
     from raytracerfacility_tpu_torch.enums import EnvironmentalLightingType
+    from raytracerfacility_tpu_torch.models.illumination import (
+        TriangleIlluminationEstimator,
+        estimate_illumination_counted,
+    )
+    from raytracerfacility_tpu_torch.models.pathtracer import (
+        RenderConfig,
+        init_frame,
+        render_frames_counted,
+    )
+    from raytracerfacility_tpu_torch.models.renderer import EnvironmentProperties
+    from raytracerfacility_tpu_torch.ops import traverse
+    from raytracerfacility_tpu_torch.scenes import (
+        canopy_illumination,
+        canopy_scene,
+        strands_scene,
+    )
+
+    def time_launch(what, render, any_hit):
+        bvh, planes, n = _first_call(traverse, "trace_planes", render,
+                                     lambda a: bool(a["any_hit"]) == any_hit)[:3]
+        planes = [p[:n].contiguous() for p in planes]
+        ms[what] = _median_ms(lambda: traverse.trace_planes(bvh, planes, n, any_hit),
+                              args.reps)
+
+    sls = EnvironmentProperties(sun_direction=(0.45, 0.75, 0.35), light_size=0.05,
+                                ambient_light_intensity=0.2)
+    scene, cam, env = canopy_scene(512, 512)
+    c6 = scene.build(dev, build_bvh=True)
+    for what, config, env_state, any_hit in (
+            ("K5 closest config 6 segment 0",
+             RenderConfig(width=512, height=512, bounces=2), env.state(dev), False),
+            ("K5 any-hit config 6 SLS shadow rays", RenderConfig(
+                width=512, height=512, bounces=2,
+                lighting_type=EnvironmentalLightingType.SINGLE_LIGHT_SOURCE),
+             sls.state(dev), True)):
+        time_launch(what, lambda: render_frames_counted(
+            c6, cam.state(dev), env_state, config, init_frame(512, 512, dev), 2), any_hit)
+    del c6
+    scene, cam, env = strands_scene(512, 512)
+    c7 = scene.build(dev, build_bvh=True)
+    time_launch("K5 closest config 7 segment 0", lambda: render_frames_counted(
+        c7, cam.state(dev), env.state(dev), RenderConfig(width=512, height=512,
+                                                         bounces=2),
+        init_frame(512, 512, dev), 2), False)
+    scene, items, env, config = canopy_illumination()
+    c4 = scene.build(dev, build_bvh=True)
+    probes = TriangleIlluminationEstimator().prepare_light_probe_group(items, dev)
+    time_launch("K5 closest config 4 segment 0", lambda: estimate_illumination_counted(
+        c4, env.state(dev), config, probes, seed=1), False)
+
+
+def time_k1_shapes(args, dev, ms):
+    """K1 at 1080p segments 0 and 1, config 4's first presorted launch and
+    config 6's first two segmented launches."""
+    import torch
+
     from raytracerfacility_tpu_torch.models.illumination import (
         TriangleIlluminationEstimator,
         estimate_illumination_counted,
@@ -105,23 +234,13 @@ def main() -> int:
         init_frame,
         render_frames_counted,
     )
-    from raytracerfacility_tpu_torch.models.renderer import EnvironmentProperties
-    from raytracerfacility_tpu_torch.ops import brute, fused, seg
+    from raytracerfacility_tpu_torch.ops import fused, seg
     from raytracerfacility_tpu_torch.ops.rng import to_int32
     from raytracerfacility_tpu_torch.scenes import (
         bench_scene,
         canopy_illumination,
         canopy_scene,
-        strands_scene,
     )
-
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         check=True, timeout=60).stdout.strip().splitlines()[0]
-    print(smi)
-    kernels.build()
-    dev = torch.device("cuda", 0)
-    ms = {}
 
     def time_k1(what, launch):
         tables, env, st, rng, n, first, has_cont, chunk = launch[:8]
@@ -166,7 +285,20 @@ def main() -> int:
         time_k1(f"K1 config 6 segment {s}", launch)
     del c6, launch
 
-    # config 7: K3 closest on the first launch, any-hit on the SLS shadow rays
+
+def time_k3_shapes(args, dev, ms):
+    """K3 closest on config 7's first launch, any-hit on its SLS shadow
+    rays."""
+    from raytracerfacility_tpu_torch.enums import EnvironmentalLightingType
+    from raytracerfacility_tpu_torch.models.pathtracer import (
+        RenderConfig,
+        init_frame,
+        render_frames_counted,
+    )
+    from raytracerfacility_tpu_torch.models.renderer import EnvironmentProperties
+    from raytracerfacility_tpu_torch.ops import brute
+    from raytracerfacility_tpu_torch.scenes import strands_scene
+
     scene, cam, env = strands_scene(512, 512)
     c7 = scene.build(dev)
     sls = EnvironmentProperties(sun_direction=(0.45, 0.75, 0.35), light_size=0.05,
@@ -186,10 +318,6 @@ def main() -> int:
         planes = [p[:n].contiguous() for p in planes]
         ms[what] = _median_ms(lambda: brute.trace_planes(tabs, planes, n, any_hit),
                               args.reps)
-    print(json.dumps({"tree": args.tree, "card": smi, "torch": torch.__version__,
-                      "ms": {k: v[0] for k, v in ms.items()},
-                      "times": {k: v[1] for k, v in ms.items()}}))
-    return 0
 
 
 if __name__ == "__main__":
