@@ -42,6 +42,9 @@ its kernels:
   captured launch; the 1080p path with the block reorder, whose frame must
   equal the default one.
 
+K2 and K2-SLS must equal their plain versions on all 12 output planes of
+every ray (K2-SLS at least on ``HIT_AGREE`` of them), and their work
+counters (``stats=True``) ``ops/fused.py``'s replay on a sample of warps.
 It times the kernels and the paths, splits the device time of one 1080p
 call and of one config-7 call by kernel family (``torch.profiler``, CUDA
 activity), computes each kernel's bound from the work its inputs need,
@@ -235,8 +238,9 @@ def check_k1_launch(launch, rays, what):
 
 
 def check_k2(device, width, height, frames, bounces):
-    """K2 against its plain version on a pool of ``frames`` pooled frames.
-    Returns the largest |d| of the radiance."""
+    """K2 against its plain version on a pool of ``frames`` pooled frames:
+    all 12 output planes equal on every ray, the live counts equal.
+    Returns the largest |d| of the radiance (0)."""
     import torch
 
     from raytracerfacility_tpu_torch.ops import fused
@@ -252,11 +256,15 @@ def check_k2(device, width, height, frames, bounces):
     torch.cuda.synchronize()
     worst = _check_color(out_k[0:3], out_p[0:3], "radiance")
     q = max(_check_aov(out_k[k], out_p[k], f"aov plane {k}") for k in range(3, 12))
-    print(f"  {n} rays: aov planes worst |d| p99.9 {q:.3g}, radiance max |d| "
-          f"{worst:.3g}")
+    equal = (out_k == out_p).all(0)
+    print(f"  {n} rays: all 12 planes equal on {float(equal.float().mean()):.6f} of "
+          f"rays ({int((~equal).sum())} differ), aov planes worst |d| p99.9 "
+          f"{q:.3g}, radiance max |d| {worst:.3g}")
     a, b = int(cnt_k), int(cnt_p)
     print(f"  live ray-segments kernel {a} plain {b}")
-    if abs(a - b) > max(2, 1e-3 * b):
+    if not bool(equal.all()):
+        raise AssertionError("K2 output planes differ from the plain version")
+    if a != b:
         raise AssertionError("K2 live counts disagree")
     return worst
 
@@ -281,10 +289,11 @@ def check_k2_sls(device, width, height, frames):
     torch.cuda.synchronize()
     worst = _check_color(out_k[0:3], out_p[0:3], "SLS radiance")
     q = max(_check_aov(out_k[k], out_p[k], f"aov plane {k}") for k in range(3, 12))
-    same = float((out_k == out_p).all(0).float().mean())
-    print(f"  {n} rays: all 12 planes equal on {same:.6f} of rays, aov planes "
-          f"worst |d| p99.9 {q:.3g}, radiance max |d| {worst:.3g}; live "
-          f"{int(cnt_k)} vs {int(cnt_p)}")
+    equal = (out_k == out_p).all(0)
+    same = float(equal.float().mean())
+    print(f"  {n} rays: all 12 planes equal on {same:.6f} of rays "
+          f"({int((~equal).sum())} differ), aov planes worst |d| p99.9 {q:.3g}, "
+          f"radiance max |d| {worst:.3g}; live {int(cnt_k)} vs {int(cnt_p)}")
     if same < HIT_AGREE:
         raise AssertionError("K2-SLS output planes disagree")
     if int(cnt_k) != int(cnt_p):
@@ -656,6 +665,75 @@ def k1_launch(launch, k3_tables, rays, what, warps=SAMPLE_WARPS):
           f"culling, bound {bnd:.4f} ms by {by}")
     shape = k1_shape(launch, ms, bnd, by, best_t, what, warps)
     return err, plain_ms, dict(shape, plain_rays=n if rays is None else rays.numel())
+
+
+def fused_work(tables, chunk, rays, rng, env, out_k, what, bounces=None,
+               warps=SAMPLE_WARPS):
+    """K2's (``bounces`` given) or K2-SLS's work on a pool: a ``stats=True``
+    launch over the whole pool, whose output must equal ``out_k`` (the
+    kernel's without counters), and its counters on a strided sample of
+    whole warps against ``ops/fused.py``'s replay of the same rays (order
+    "warp"; on the card, since its paths must shade as the kernel's do),
+    which must equal them and the kernel's output there exactly. The floor
+    is a cull at each ray's final best t in each sweep (an occluded
+    shadow ray one row). Returns {record: (rows a ray mean, p99, row
+    iterations a warp mean, max, floor rows a ray mean)}, rays counted
+    where live at their first sweep."""
+    import torch
+
+    from raytracerfacility_tpu_torch.ops import brute, fused, sweep
+
+    sls = bounces is None
+    if sls:
+        out_s, _, counts, wrows = fused.fused_sls(tables, rays, rng, env, chunk,
+                                                  stats=True)
+    else:
+        out_s, _, counts, wrows = fused.fused_path(tables, rays, rng, env, bounces,
+                                                   chunk, stats=True)
+    counts = counts.view(-1, len(sweep.STATS), rays.shape[1])
+    wrows = wrows.view(counts.shape[0], -1)
+    nw = rays.shape[1] // sweep.WARP
+    w = torch.arange(0, nw, max(1, nw // warps), device=rays.device)
+    idx = (w[:, None] * sweep.WARP + torch.arange(sweep.WARP, device=rays.device)).reshape(-1)
+    sub_rays, sub_rng = rays[:, idx].contiguous(), rng[idx].contiguous()
+    t0 = time.perf_counter()
+    if sls:
+        out_r, _, sweeps = fused._fused_sls_replay(tables, sub_rays, sub_rng, env, chunk)
+    else:
+        out_r, _, sweeps = fused._fused_path_replay(tables, sub_rays, sub_rng, env,
+                                                    bounces, chunk)
+    want = fused._replay_counts(sweeps, stacked=sls)
+    want = want[0].view(-1, *want[0].shape[-2:]), want[1].view(-1, want[1].shape[-1])
+    equal = (torch.equal(counts[:, :, idx], want[0]) and torch.equal(wrows[:, w], want[1])
+             and torch.equal(out_s, out_k) and torch.equal(out_r, out_k[:, idx]))
+    sub = tables[0].shape[0] // tables[1].shape[0]
+    floors = []
+    for r in sweeps:
+        best_t = torch.where(r.live, r.record["t"], brute.DEAD)
+        tri, _, _ = sweep.floor_runs(tables[1], tables[2], chunk, sub, r.o, r.d, r.tmin,
+                                     best_t)
+        floors.append(tri * sub + (r.record["t"] == brute.DEAD))
+    floors = [sum(floors)] if not sls else floors
+    lv = sweeps[0].live
+    print(f"  {what}: counters of {w.numel()} warps ({int(lv.sum())} live rays), "
+          f"stats launch == counted launch and kernel == replay: {equal} "
+          f"({time.perf_counter() - t0:.1f} s)")
+    out = {}
+    names = ("closest", "shadow") if sls else ("segments",)
+    for k, name in enumerate(names):
+        c = want[0][k][:, lv].double()
+        rows = c[4]
+        out[name] = (float(rows.mean()), _quantile(rows, 0.99),
+                     float(want[1][k].double().mean()), float(want[1][k].max()),
+                     float(floors[k][lv].double().mean()))
+        print(f"    {name}: a live ray chunk slabs {float(c[0].mean()):.2f}, chunks "
+              f"entered {float(c[1].mean()):.2f}, run slabs {float(c[2].mean()):.2f}, "
+              f"runs entered {float(c[3].mean()):.2f}, rows tested mean "
+              f"{out[name][0]:.2f} (p99 {out[name][1]:.0f}, floor {out[name][4]:.2f}); "
+              f"row iterations a warp mean {out[name][2]:.1f}, max {out[name][3]:.0f}")
+    if not equal:
+        raise AssertionError(f"{what}: counters or outputs differ from the replay")
+    return out
 
 
 def _nbytes(*tensors):
@@ -2178,15 +2256,23 @@ def main() -> int:
     n5 = o.shape[0]
     rays5 = torch.cat([o.T, d.T, torch.ones(1, n5, device=device)]).contiguous()
     rng5 = to_int32(rng).contiguous()
-    k2_ms = _timed(lambda: fused.fused_path(tables, rays5, rng5, env5, BOUNCES,
-                                            chunk), 5)
+    k2_ms, k2_times = _median_ms(lambda: fused.fused_path(tables, rays5, rng5, env5,
+                                                          BOUNCES, chunk))
     k2_plain_ms = _timed(lambda: fused._fused_path_plain(tables, rays5, rng5, env5,
                                                          BOUNCES), 1)
-    k2_ms_b = _timed(lambda: fused.fused_path(tables, rays5, rng5, env5, BOUNCES,
-                                              chunk), 5)
-    # K2's tests: every segment of the plain replay, each culled at its hit
+    k2_ms_b, _ = _median_ms(lambda: fused.fused_path(tables, rays5, rng5, env5, BOUNCES,
+                                                     chunk))
+    # K2's tests: every segment of the plain replay, each culled at its hit;
+    # and the share of live lanes in the warps (32 rays in pool order) that
+    # run each segment, which a reorder inside the kernel would raise to 1
     st, r5, tri = fused.init_state(o, d, torch.ones(n5, device=device)), rng5, 0
+    shares, lane_segs, warp_segs = [], 0, 0
     for s in range(BOUNCES + 1):
+        lanes = (st[fused.ACT] > 0.0).view(-1, 32)
+        runs = lanes.any(1)
+        shares.append(float(lanes[runs].float().mean()) if bool(runs.any()) else 0.0)
+        lane_segs += int(lanes.sum())
+        warp_segs += int(runs.sum())
         live = torch.nonzero(st[fused.ACT] > 0.0)[:, 0]
         sub = st[:, live].contiguous()
         tmin = 0.0 if s == 0 else fused._BOUNCE_TMIN
@@ -2198,20 +2284,26 @@ def main() -> int:
         st[:, live], r5[live] = new, new_rng
     # 8 planes in (7 + rng), 12 out
     k2_bound, k2_by = bound(_nbytes(tables[0]) + mat_env + 4 * 20 * n5, tri, 0)
-    print(f"  K2 at {n5} rays, {BOUNCES} bounces: kernel {k2_ms:.3f} / "
-          f"{k2_ms_b:.3f} ms, plain {k2_plain_ms:.3f} ms; {tri} triangle tests "
-          f"after culling, bound {k2_bound:.4f} ms by {k2_by}")
+    print(f"  K2 at {n5} rays, {BOUNCES} bounces: kernel median of 5 {k2_ms:.3f} "
+          f"({', '.join(f'{t:.3f}' for t in k2_times)}) / {k2_ms_b:.3f} ms, plain "
+          f"{k2_plain_ms:.3f} ms; {tri} triangle tests after culling, bound "
+          f"{k2_bound:.4f} ms by {k2_by}; {ptxas.get('fused_path_kernel<false>')}")
+    print(f"  K2 live lanes a running warp by segment: "
+          f"{', '.join(f'{x:.4f}' for x in shares)}; over all {warp_segs} warp "
+          f"segments {lane_segs / (32 * warp_segs):.4f}")
+    k2_out, _ = fused.fused_path(tables, rays5, rng5, env5, BOUNCES, chunk)
+    k2_work = fused_work(tables, chunk, rays5, rng5, env5, k2_out, "K2", BOUNCES)
 
     # K2-SLS on the first launch of the SLS 1080p path (the same bench
     # tables as the 1080p compiled scene)
     s_comp, s_rays, s_rng, s_env = k2s_pool
     ns = s_rays.shape[1]
-    k2s_ms = _timed(lambda: fused.fused_sls(s_comp.fused, s_rays, s_rng, s_env,
-                                            chunk), 5)
+    k2s_ms, k2s_times = _median_ms(lambda: fused.fused_sls(s_comp.fused, s_rays, s_rng,
+                                                           s_env, chunk))
     k2s_plain_ms = _timed(lambda: fused._fused_sls_plain(s_comp.fused, s_rays,
                                                          s_rng, s_env), 1)
-    k2s_ms_b = _timed(lambda: fused.fused_sls(s_comp.fused, s_rays, s_rng,
-                                              s_env, chunk), 5)
+    k2s_ms_b, _ = _median_ms(lambda: fused.fused_sls(s_comp.fused, s_rays, s_rng,
+                                                     s_env, chunk))
     # its tests: the closest-hit sweep culled at each ray's hit, then the
     # shadow sweep from the plain replay, counted as K3 any-hit's are
     st = fused.init_state(s_rays[0:3].T, s_rays[3:6].T, s_rays[6])
@@ -2225,11 +2317,14 @@ def main() -> int:
     # 8 planes in (7 + rng), 12 out
     k2s_bound, k2s_by = bound(_nbytes(tables[0]) + mat_env + 4 * 20 * ns,
                               tri_c + tri_s, 0)
-    print(f"  K2-SLS at {ns} rays: kernel {k2s_ms:.3f} / {k2s_ms_b:.3f} ms, plain "
+    print(f"  K2-SLS at {ns} rays: kernel median of 5 {k2s_ms:.3f} "
+          f"({', '.join(f'{t:.3f}' for t in k2s_times)}) / {k2s_ms_b:.3f} ms, plain "
           f"{k2s_plain_ms:.3f} ms; {tri_c} closest-hit and {tri_s} shadow "
           f"triangle tests after culling ({int(occluded.sum())} of "
           f"{int((sh[7] != brute.DEAD).sum())} shadow rays occluded), bound "
-          f"{k2s_bound:.4f} ms by {k2s_by}")
+          f"{k2s_bound:.4f} ms by {k2s_by}; {ptxas.get('fused_sls_kernel<false>')}")
+    k2s_out, _ = fused.fused_sls(s_comp.fused, s_rays, s_rng, s_env, chunk)
+    k2s_work = fused_work(s_comp.fused, chunk, s_rays, s_rng, s_env, k2s_out, "K2-SLS")
 
     k3_rows = _nbytes(*c7.pallas_tris)
     k3 = {}
@@ -2309,12 +2404,17 @@ def main() -> int:
                  k1_by),
              shape="1080p segment 0", shapes=k1_shapes,
              ptxas=[ptxas.get(f"seg_segment_kernel<{b}>") for b in ("false", "true")]),
-        row("fused_path_kernel", "path.cu",
-            "raytracerfacility_tpu/ops/pallas_fused.py:217", k2_err, k2_ms,
-            k2_plain_ms, k2_bound, k2_by),
-        row("fused_sls_kernel", "path.cu",
-            "raytracerfacility_tpu/ops/pallas_fused.py:424", k2s_err, k2s_ms,
-            k2s_plain_ms, k2s_bound, k2s_by),
+        dict(row("fused_path_kernel", "path.cu",
+                 "raytracerfacility_tpu/ops/pallas_fused.py:217", k2_err, k2_ms,
+                 k2_plain_ms, k2_bound, k2_by),
+             shape=f"{SMALL}x{SMALL} x {FRAMES} frames, {n5} rays, {BOUNCES} bounces",
+             work=k2_work, live_lane_share=shares,
+             ptxas=[ptxas.get(f"fused_path_kernel<{b}>") for b in ("false", "true")]),
+        dict(row("fused_sls_kernel", "path.cu",
+                 "raytracerfacility_tpu/ops/pallas_fused.py:424", k2s_err, k2s_ms,
+                 k2s_plain_ms, k2s_bound, k2s_by),
+             shape=f"first SLS {WIDTH}x{HEIGHT} launch, {ns} rays", work=k2s_work,
+             ptxas=[ptxas.get(f"fused_sls_kernel<{b}>") for b in ("false", "true")]),
         dict(row("brute_trace_kernel<false>", "brute.cu",
                  "raytracerfacility_tpu/ops/pallas_brute.py:201", k3c_err,
                  *k3["closest"][:4]),

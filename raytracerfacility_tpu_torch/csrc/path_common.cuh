@@ -1,13 +1,13 @@
-// Per-ray trace of K2 and K2-SLS and the Default-material shade of the
-// three path kernels in path.cu (K1 traces with sweep.cuh); the inverse
-// direction, Moller-Trumbore and the sphere-swept segment test are also
-// K3's (brute.cu) and K5's (bvh.cu).
+// The ray-primitive tests and the Default-material shade of the three path
+// kernels in path.cu, which trace with sweep.cuh; the inverse direction,
+// Moller-Trumbore and the sphere-swept segment test are also K3's
+// (brute.cu), K4's (inst.cu) and K5's (bvh.cu).
 //
 // Ports the math of raytracerfacility_tpu/ops/pallas_seg.py:254 _kernel
-// and raytracerfacility_tpu/ops/pallas_fused.py:217 _kernel (Scene
-// lighting): closest hit over the Morton-packed 20-column table with
-// chunk and 16-row sub-run box culling, then the shade step of
-// pallas_seg.py:506-638.
+// and raytracerfacility_tpu/ops/pallas_fused.py:217 _kernel: the
+// triangle test of the Morton-packed 20-column table, the shade step of
+// pallas_seg.py:506-638 and the SingleLightSource shade of
+// pallas_fused.py:424-639 around its shadow ray.
 //
 // Numerics. Build with -fmad=false: contracting a*b+c into an FMA changes
 // the rounding of det, u, v and t and flips grazing accepts against the
@@ -65,27 +65,6 @@ struct Hit {
 __device__ __forceinline__ float inv_dir(float d) {
   const float eps = 1e-20f;
   return 1.0f / (fabsf(d) < eps ? (d < 0.0f ? -eps : eps) : d);
-}
-
-// Ray/box slab test against box row b (lo xyz, hi xyz) with the ray's
-// reciprocal direction. Closest-hit sweeps compare near <= bt, so a tie
-// candidate on a box boundary is visited; the SLS shadow sweep of K2
-// compares near < bt (kStrict), as its TPU kernel does.
-template <bool kStrict = false>
-__device__ __forceinline__ bool slab(const float* b, float ox, float oy,
-                                     float oz, float ivx, float ivy, float ivz,
-                                     float tmin, float bt) {
-  const float t1x = (b[0] - ox) * ivx;
-  const float t2x = (b[3] - ox) * ivx;
-  const float t1y = (b[1] - oy) * ivy;
-  const float t2y = (b[4] - oy) * ivy;
-  const float t1z = (b[2] - oz) * ivz;
-  const float t2z = (b[5] - oz) * ivz;
-  const float near = fmaxf(fmaxf(fminf(t1x, t2x), fminf(t1y, t2y)),
-                           fminf(t1z, t2z));
-  const float far = fminf(fminf(fmaxf(t1x, t2x), fmaxf(t1y, t2y)),
-                          fmaxf(t1z, t2z));
-  return near <= far && far > tmin && (kStrict ? near < bt : near <= bt);
 }
 
 // Moller-Trumbore of one ray against a row whose columns 0-8 are v0, e1,
@@ -171,66 +150,6 @@ __device__ __forceinline__ bool curve_test(const float* row, float ox, float oy,
       fminf(fmaxf((m1 - r0 * rr + t * m2) / safe_d2, 0.0f), 1.0f);
   u = t == t0c ? 0.0f : (t == t1c ? 1.0f : u_body);
   return body_ok || cap0_ok || cap1_ok;
-}
-
-// Closest hit over the 20-column table. Ties in t go to the lowest
-// original primitive id, which makes the result the lexicographic (t, id)
-// min in any visit order.
-__device__ __forceinline__ void trace(const Scene& s, const Path& p, float tmin,
-                                      Hit& h) {
-  h.t = kTMax;
-  h.nx = h.ny = h.nz = 0.0f;
-  h.mid = 0.0f;
-  h.pid = kNoId;
-  const float ivx = inv_dir(p.dx), ivy = inv_dir(p.dy), ivz = inv_dir(p.dz);
-  const int runs = s.chunk / s.sub;
-  for (int c = 0; c < s.nchunks; ++c) {
-    if (!slab(s.chunks + c * kBox, p.ox, p.oy, p.oz, ivx, ivy, ivz, tmin, h.t))
-      continue;
-    for (int r = c * runs; r < (c + 1) * runs; ++r) {
-      if (!slab(s.subs + r * kBox, p.ox, p.oy, p.oz, ivx, ivy, ivz, tmin, h.t))
-        continue;
-      const float* tri = s.tris + (size_t)r * s.sub * kCols;
-      for (int k = 0; k < s.sub; ++k, tri += kCols) {
-        float t, u, v;
-        const float jf = tri[9];
-        if (tri_test(tri, p.ox, p.oy, p.oz, p.dx, p.dy, p.dz, tmin, t, u, v) &&
-            (t < h.t || (t == h.t && jf < h.pid))) {
-          h.t = t;
-          h.nx = tri[10] + u * tri[13] + v * tri[16];
-          h.ny = tri[11] + u * tri[14] + v * tri[17];
-          h.nz = tri[12] + u * tri[15] + v * tri[18];
-          h.mid = tri[19];
-          h.pid = jf;
-        }
-      }
-    }
-  }
-}
-
-// Any-hit over the 20-column table from (o, d) in (tmin, kTMax): the
-// shadow sweep of K2's SingleLightSource phase (ref pallas_fused.py:494-573),
-// which returns at the first accepted triangle.
-__device__ __forceinline__ bool occluded(const Scene& s, float ox, float oy,
-                                         float oz, float dx, float dy, float dz,
-                                         float tmin) {
-  const float ivx = inv_dir(dx), ivy = inv_dir(dy), ivz = inv_dir(dz);
-  const int runs = s.chunk / s.sub;
-  for (int c = 0; c < s.nchunks; ++c) {
-    if (!slab<true>(s.chunks + c * kBox, ox, oy, oz, ivx, ivy, ivz, tmin, kTMax))
-      continue;
-    for (int r = c * runs; r < (c + 1) * runs; ++r) {
-      if (!slab<true>(s.subs + r * kBox, ox, oy, oz, ivx, ivy, ivz, tmin, kTMax))
-        continue;
-      const float* tri = s.tris + (size_t)r * s.sub * kCols;
-      for (int k = 0; k < s.sub; ++k, tri += kCols) {
-        float t, u, v;
-        if (tri_test(tri, ox, oy, oz, dx, dy, dz, tmin, t, u, v) && t < kTMax)
-          return true;
-      }
-    }
-  }
-  return false;
 }
 
 __device__ __forceinline__ uint32_t lcg(uint32_t s, float& val) {
@@ -379,50 +298,57 @@ __device__ __forceinline__ void shade(const Scene& s, const float* env,
 }
 
 // SingleLightSource shade of a camera ray after its trace (ref
-// pallas_fused.py:424-639, RayFunctions.cuh:61-92): on a miss the flat
-// colour; on a hit emission, ambient, and one sun-cone sample (alpha =
-// env[9] around env[6:9]) whose shadow ray from the hit point adds the
-// sun's flat colour times N.L when nothing occludes it. The path ends.
-__device__ __forceinline__ void shade_sls(const Scene& s, const float* env,
-                                          Path& p, const Hit& h, Aov& aov) {
+// pallas_fused.py:424-639, RayFunctions.cuh:61-92), in two parts around
+// the shadow ray's any-hit sweep. The path ends either way.
+//
+// sls_begin: on a miss the flat colour and the no-hit AOVs; on a hit
+// emission, ambient, the first-hit AOVs and one sun-cone sample (alpha =
+// env[9] around env[6:9], the RNG advanced as the reference does). Returns
+// whether the shadow ray is cast: a hit whose facing normal has N.L > 0 with
+// the sample, from the hit point (aov.px, py, pz) along (sdx, sdy, sdz).
+__device__ __forceinline__ bool sls_begin(const Scene& s, const float* env,
+                                          Path& p, const Hit& h, Aov& aov,
+                                          float& sdx, float& sdy, float& sdz,
+                                          float& ndl) {
   p.act = 0.0f;
   if (!(h.t < kHitMax)) {
     p.rr = p.rr + p.tr * env[0];
     p.rg = p.rg + p.tg * env[1];
     p.rb = p.rb + p.tb * env[2];
     no_hit_aov(aov, env[0], env[1], env[2]);
-    return;
+    return false;
   }
   const float* m = s.mats + (int)h.mid * kMat;
   const float ar = m[0], ag = m[1], ab = m[2], em = m[5];
   float nx, ny, nz;
   facing_normal(p, h, nx, ny, nz);
-  const float hx = p.ox + h.t * p.dx;
-  const float hy = p.oy + h.t * p.dy;
-  const float hz = p.oz + h.t * p.dz;
-  float sdx, sdy, sdz;
-  p.rng = cone_sample(p.rng, env[6], env[7], env[8], env[9], sdx, sdy, sdz);
-  const float ndl = nx * sdx + ny * sdy + nz * sdz;
-  p.rr = p.rr + p.tr * em * ar;  // emission
-  p.rg = p.rg + p.tg * em * ag;
-  p.rb = p.rb + p.tb * em * ab;
-  p.rr = p.rr + p.tr * env[3] * ar;  // ambient
-  p.rg = p.rg + p.tg * env[4] * ag;
-  p.rb = p.rb + p.tb * env[5] * ab;
-  if (ndl > 0.0f && !occluded(s, hx, hy, hz, sdx, sdy, sdz, kBounceTMin)) {
-    p.rr = p.rr + p.tr * env[0] * ndl * ar;
-    p.rg = p.rg + p.tg * env[1] * ndl * ag;
-    p.rb = p.rb + p.tb * env[2] * ndl * ab;
-  }
   aov.nx = nx;
   aov.ny = ny;
   aov.nz = nz;
   aov.ar = ar;
   aov.ag = ag;
   aov.ab = ab;
-  aov.px = hx;
-  aov.py = hy;
-  aov.pz = hz;
+  aov.px = p.ox + h.t * p.dx;
+  aov.py = p.oy + h.t * p.dy;
+  aov.pz = p.oz + h.t * p.dz;
+  p.rng = cone_sample(p.rng, env[6], env[7], env[8], env[9], sdx, sdy, sdz);
+  ndl = nx * sdx + ny * sdy + nz * sdz;
+  p.rr = p.rr + p.tr * em * ar;  // emission
+  p.rg = p.rg + p.tg * em * ag;
+  p.rb = p.rb + p.tb * em * ab;
+  p.rr = p.rr + p.tr * env[3] * ar;  // ambient
+  p.rg = p.rg + p.tg * env[4] * ag;
+  p.rb = p.rb + p.tb * env[5] * ab;
+  return ndl > 0.0f;
+}
+
+// sls_sun: the sun's flat colour times N.L and the hit's albedo, added
+// when the shadow ray found no occluder.
+__device__ __forceinline__ void sls_sun(const float* env, Path& p,
+                                        const Aov& aov, float ndl) {
+  p.rr = p.rr + p.tr * env[0] * ndl * aov.ar;
+  p.rg = p.rg + p.tg * env[1] * ndl * aov.ag;
+  p.rb = p.rb + p.tb * env[2] * ndl * aov.ab;
 }
 
 }  // namespace rtf

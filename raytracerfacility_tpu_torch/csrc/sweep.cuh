@@ -1,8 +1,9 @@
 // The warp-cooperative front-to-back sweep over a Morton-packed primitive
-// table, shared by K1 (path.cu seg_segment_kernel, 20-column triangle rows),
-// K3 (brute.cu brute_trace_kernel, 12-column triangle and curve rows) and
-// K4 (inst.cu inst_trace_kernel, one instance's object-space rows a sweep).
-// ops/sweep.py emulates it step for step (order "warp"), counters included.
+// table, shared by K1, K2 and K2-SLS (path.cu, 20-column triangle rows), K3
+// (brute.cu brute_trace_kernel, 12-column triangle and curve rows) and K4
+// (inst.cu inst_trace_kernel, one instance's object-space rows a sweep).
+// ops/sweep.py emulates it step for step (order "warp"; K2-SLS's unkeyed
+// shadow sweep: order "index" with pairs), counters included.
 //
 // The TPU kernels these replace (pallas_seg.py:254, pallas_brute.py:201)
 // visit a tile's chunks front to back (ops/chunk_order.py), so near hits
@@ -139,20 +140,142 @@ struct SweepStats {
   int warp_rows;
 };
 
-// list: this warp's kListCap words of shared memory (fewer when the
-// table has fewer chunks).
+// The runs of chunk c, entered by the lanes with in_chunk: each lane culls
+// each run against its own best t, a ballot skips a run no lane enters, a
+// run more than kPairLanes lanes enter is tested one lane a ray, one fewer
+// enter as (ray, row) pairs over the warp. An any-hit lane that accepts
+// leaves (live false). Every lane of the warp must call it.
 template <class Rows, bool kAnyHit, bool kStats>
-__device__ __forceinline__ void warp_sweep(const Rows& rows, const Boxes& bx,
-                                           const SweepRay& ray, bool live,
+__device__ __forceinline__ void sweep_runs(const Rows& rows, const Boxes& bx,
+                                           const SweepRay& ray, int c,
+                                           bool in_chunk, bool& live,
                                            typename Rows::Best& best,
-                                           uint32_t* list, SweepStats& st) {
+                                           SweepStats& st) {
   const int lane = threadIdx.x & 31;
-  const int bits = bx.nchunks > 1 ? 32 - __clz(bx.nchunks - 1) : 0;
-  const uint32_t low = (1u << bits) - 1u;
   // a run's rows pack whole into lanes when bx.sub is a power of two <= 32
   const bool pairs_fit = bx.sub <= 32 && (bx.sub & (bx.sub - 1)) == 0;
   const int shift = __ffs(bx.sub) - 1;
   const float inf = __int_as_float(0x7f800000);
+  float near;
+  for (int r = c * bx.runs; r < (c + 1) * bx.runs; ++r) {
+    const float* box = bx.subs + r * kBox;
+    // a table whose padding runs have inverted (empty) boxes, which the
+    // slab test would take for the whole space, skips them
+    bool in_run = in_chunk && (!Rows::kSkipInverted || box[0] <= box[3]) &&
+                  slab_pad(box, ray, best.t, near);
+    if (kStats && in_chunk) {
+      ++st.v[2];
+      st.v[3] += in_run;
+    }
+    const uint32_t m = __ballot_sync(kFullMask, in_run);
+    if (m == 0u) continue;
+    const float kind = box[6];
+    const int k = __popc(m);
+    if (pairs_fit && k <= kPairLanes) {
+      // few lanes entered: the warp's lanes share their (ray, row) pairs
+      const int pairs = k << shift;
+      const int first = __popc(m & ((1u << lane) - 1u)) << shift;
+      if (kStats && in_run) st.v[4] += bx.sub;
+      for (int p0 = 0; p0 < pairs; p0 += 32) {
+        if (kStats && lane == 0) ++st.warp_rows;
+        const int p = p0 + lane;
+        const int src = __fns(m, 0, (p < pairs ? p >> shift : 0) + 1);
+        const int pos = p & (bx.sub - 1);
+        SweepRay q = ray;
+        q.ox = __shfl_sync(kFullMask, ray.ox, src);
+        q.oy = __shfl_sync(kFullMask, ray.oy, src);
+        q.oz = __shfl_sync(kFullMask, ray.oz, src);
+        q.dx = __shfl_sync(kFullMask, ray.dx, src);
+        q.dy = __shfl_sync(kFullMask, ray.dy, src);
+        q.dz = __shfl_sync(kFullMask, ray.dz, src);
+        q.tmin = __shfl_sync(kFullMask, ray.tmin, src);
+        float t = 0.0f, u = 0.0f, v = 0.0f, jf = 0.0f;
+        bool ok = p < pairs && rows.probe(r * bx.sub + pos, kind, q, t, u, v, jf);
+        if (kAnyHit) {
+          const float bt = __shfl_sync(kFullMask, best.t, src);
+          const float bid = __shfl_sync(kFullMask, rows.id(best), src);
+          ok = ok && (t < bt || (t == bt && jf < bid));
+        }
+        // the least row of each ray's group of bx.sub lanes: closest
+        // hit by (t, id), any-hit by position (its first accept)
+        float kt = ok ? (kAnyHit ? (float)pos : t) : inf;
+        float kj = ok ? jf : inf;
+        float ku = u, kv = v;
+        int kp = pos;
+        for (int off = bx.sub >> 1; off > 0; off >>= 1) {
+          const float ot = __shfl_xor_sync(kFullMask, kt, off);
+          const float oj = __shfl_xor_sync(kFullMask, kj, off);
+          const float ou = __shfl_xor_sync(kFullMask, ku, off);
+          const float ov = __shfl_xor_sync(kFullMask, kv, off);
+          const int op = __shfl_xor_sync(kFullMask, kp, off);
+          if (ot < kt || (ot == kt && oj < kj)) {
+            kt = ot;
+            kj = oj;
+            ku = ou;
+            kv = ov;
+            kp = op;
+          }
+        }
+        // each entering lane reads its group's least row
+        const bool owns = in_run && first >= p0 && first < p0 + 32;
+        const int from = owns ? first - p0 : lane;
+        const float gt = __shfl_sync(kFullMask, kt, from);
+        const float gj = __shfl_sync(kFullMask, kj, from);
+        const float gu = __shfl_sync(kFullMask, ku, from);
+        const float gv = __shfl_sync(kFullMask, kv, from);
+        const int gp = __shfl_sync(kFullMask, kp, from);
+        if (owns && gj != inf) {
+          if (kAnyHit) {
+            rows.template take<true>(r * bx.sub + gp, gt, gu, gv, gj, best);
+            in_run = in_chunk = live = false;
+          } else if (gt < best.t || (gt == best.t && gj < rows.id(best))) {
+            rows.template take<false>(r * bx.sub + gp, gt, gu, gv, gj, best);
+          }
+        }
+      }
+      continue;
+    }
+    for (int j = 0; j < bx.sub; ++j) {
+      if (kStats && lane == 0) ++st.warp_rows;
+      if (!in_run) continue;
+      if (kStats) ++st.v[4];
+      float t, u, v, jf;
+      if (rows.probe(r * bx.sub + j, kind, ray, t, u, v, jf) &&
+          (t < best.t || (t == best.t && jf < rows.id(best)))) {
+        rows.template take<kAnyHit>(r * bx.sub + j, t, u, v, jf, best);
+        if (kAnyHit) in_run = in_chunk = live = false;
+      }
+    }
+  }
+}
+
+// list: this warp's kListCap words of shared memory (fewer when the
+// table has fewer chunks; unused without kKeyed). kKeyed false visits the
+// chunks in index order with no keys: each live lane tests each chunk's
+// slab, a ballot skips a chunk no lane enters (an any-hit sweep, whose
+// answer no order changes, saves the keys' slab tests and list).
+template <class Rows, bool kAnyHit, bool kStats, bool kKeyed = true>
+__device__ __forceinline__ void warp_sweep(const Rows& rows, const Boxes& bx,
+                                           const SweepRay& ray, bool live,
+                                           typename Rows::Best& best,
+                                           uint32_t* list, SweepStats& st) {
+  static_assert(kKeyed || !Rows::kChunkGroups, "chunk groups cull the keys");
+  if (!kKeyed) {
+    for (int c = 0; c < bx.nchunks && __any_sync(kFullMask, live); ++c) {
+      float near;
+      const bool in_chunk = live && slab_pad(bx.chunks + c * kBox, ray, best.t, near);
+      if (kStats && live) {
+        ++st.v[0];
+        st.v[1] += in_chunk;
+      }
+      if (__ballot_sync(kFullMask, in_chunk) == 0u) continue;
+      sweep_runs<Rows, kAnyHit, kStats>(rows, bx, ray, c, in_chunk, live, best, st);
+    }
+    return;
+  }
+  const int lane = threadIdx.x & 31;
+  const int bits = bx.nchunks > 1 ? 32 - __clz(bx.nchunks - 1) : 0;
+  const uint32_t low = (1u << bits) - 1u;
   for (int c0 = 0; c0 < bx.nchunks && __any_sync(kFullMask, live);) {
     // 1. keys of the next chunks the warp enters, at each lane's current
     // best t, until the list holds kListCap of them
@@ -209,96 +332,7 @@ __device__ __forceinline__ void warp_sweep(const Rows& rows, const Boxes& bx,
         st.v[1] += in_chunk;
       }
       if (__ballot_sync(kFullMask, in_chunk) == 0u) continue;
-      for (int r = c * bx.runs; r < (c + 1) * bx.runs; ++r) {
-        const float* box = bx.subs + r * kBox;
-        // a table whose padding runs have inverted (empty) boxes, which the
-        // slab test would take for the whole space, skips them
-        bool in_run = in_chunk && (!Rows::kSkipInverted || box[0] <= box[3]) &&
-                      slab_pad(box, ray, best.t, near);
-        if (kStats && in_chunk) {
-          ++st.v[2];
-          st.v[3] += in_run;
-        }
-        const uint32_t m = __ballot_sync(kFullMask, in_run);
-        if (m == 0u) continue;
-        const float kind = box[6];
-        const int k = __popc(m);
-        if (pairs_fit && k <= kPairLanes) {
-          // few lanes entered: the warp's lanes share their (ray, row) pairs
-          const int pairs = k << shift;
-          const int first = __popc(m & ((1u << lane) - 1u)) << shift;
-          if (kStats && in_run) st.v[4] += bx.sub;
-          for (int p0 = 0; p0 < pairs; p0 += 32) {
-            if (kStats && lane == 0) ++st.warp_rows;
-            const int p = p0 + lane;
-            const int src = __fns(m, 0, (p < pairs ? p >> shift : 0) + 1);
-            const int pos = p & (bx.sub - 1);
-            SweepRay q = ray;
-            q.ox = __shfl_sync(kFullMask, ray.ox, src);
-            q.oy = __shfl_sync(kFullMask, ray.oy, src);
-            q.oz = __shfl_sync(kFullMask, ray.oz, src);
-            q.dx = __shfl_sync(kFullMask, ray.dx, src);
-            q.dy = __shfl_sync(kFullMask, ray.dy, src);
-            q.dz = __shfl_sync(kFullMask, ray.dz, src);
-            q.tmin = __shfl_sync(kFullMask, ray.tmin, src);
-            float t = 0.0f, u = 0.0f, v = 0.0f, jf = 0.0f;
-            bool ok = p < pairs && rows.probe(r * bx.sub + pos, kind, q, t, u, v, jf);
-            if (kAnyHit) {
-              const float bt = __shfl_sync(kFullMask, best.t, src);
-              const float bid = __shfl_sync(kFullMask, rows.id(best), src);
-              ok = ok && (t < bt || (t == bt && jf < bid));
-            }
-            // the least row of each ray's group of bx.sub lanes: closest
-            // hit by (t, id), any-hit by position (its first accept)
-            float kt = ok ? (kAnyHit ? (float)pos : t) : inf;
-            float kj = ok ? jf : inf;
-            float ku = u, kv = v;
-            int kp = pos;
-            for (int off = bx.sub >> 1; off > 0; off >>= 1) {
-              const float ot = __shfl_xor_sync(kFullMask, kt, off);
-              const float oj = __shfl_xor_sync(kFullMask, kj, off);
-              const float ou = __shfl_xor_sync(kFullMask, ku, off);
-              const float ov = __shfl_xor_sync(kFullMask, kv, off);
-              const int op = __shfl_xor_sync(kFullMask, kp, off);
-              if (ot < kt || (ot == kt && oj < kj)) {
-                kt = ot;
-                kj = oj;
-                ku = ou;
-                kv = ov;
-                kp = op;
-              }
-            }
-            // each entering lane reads its group's least row
-            const bool owns = in_run && first >= p0 && first < p0 + 32;
-            const int from = owns ? first - p0 : lane;
-            const float gt = __shfl_sync(kFullMask, kt, from);
-            const float gj = __shfl_sync(kFullMask, kj, from);
-            const float gu = __shfl_sync(kFullMask, ku, from);
-            const float gv = __shfl_sync(kFullMask, kv, from);
-            const int gp = __shfl_sync(kFullMask, kp, from);
-            if (owns && gj != inf) {
-              if (kAnyHit) {
-                rows.template take<true>(r * bx.sub + gp, gt, gu, gv, gj, best);
-                in_run = in_chunk = live = false;
-              } else if (gt < best.t || (gt == best.t && gj < rows.id(best))) {
-                rows.template take<false>(r * bx.sub + gp, gt, gu, gv, gj, best);
-              }
-            }
-          }
-          continue;
-        }
-        for (int j = 0; j < bx.sub; ++j) {
-          if (kStats && lane == 0) ++st.warp_rows;
-          if (!in_run) continue;
-          if (kStats) ++st.v[4];
-          float t, u, v, jf;
-          if (rows.probe(r * bx.sub + j, kind, ray, t, u, v, jf) &&
-              (t < best.t || (t == best.t && jf < rows.id(best)))) {
-            rows.template take<kAnyHit>(r * bx.sub + j, t, u, v, jf, best);
-            if (kAnyHit) in_run = in_chunk = live = false;
-          }
-        }
-      }
+      sweep_runs<Rows, kAnyHit, kStats>(rows, bx, ray, c, in_chunk, live, best, st);
     }
     __syncwarp();
   }

@@ -112,8 +112,8 @@ def build() -> dict:
 
 
 _ARGTYPES = {
-    "path": {"rtf_seg_segment": (10, 7), "rtf_fused_path": (9, 5),
-             "rtf_fused_sls": (9, 4)},
+    "path": {"rtf_seg_segment": (10, 7), "rtf_fused_path": (11, 5),
+             "rtf_fused_sls": (11, 4)},
     "brute": {"rtf_brute_trace": (14, 5)},
     "inst": {"rtf_inst_trace": (21, 5)},
     "bvh": {"rtf_bvh_trace": (13, 4)},

@@ -7,7 +7,9 @@ Port of ``raytracerfacility_tpu/ops/pallas_fused.py``: ``auto_chunk``,
 kernel it replaces is ``pallas_fused.py:217 _kernel``; here that is
 ``fused_path_kernel`` (Scene) and ``fused_sls_kernel`` (its
 SingleLightSource phase, ``pallas_fused.py:424-639``) in ``csrc/path.cu``,
-launched by :func:`fused_path` and :func:`fused_sls`.
+launched by :func:`fused_path` and :func:`fused_sls`, both on the warp
+sweep of ``csrc/sweep.cuh``, whose counters :func:`_fused_path_replay` and
+:func:`_fused_sls_replay` replay through ``ops/sweep.py``.
 
 Semantics (the statically specializable feature set: triangles, Default
 materials without textures/BTF/subsurface/alpha, flat-colour Scene
@@ -24,10 +26,12 @@ without the TPU's (rows, 128) tiling.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
 from raytracerfacility_tpu_torch import kernels
+from raytracerfacility_tpu_torch.ops import sweep
 from raytracerfacility_tpu_torch.ops.brute import DEAD, _trace_plain as _any_plain, tri_test
 from raytracerfacility_tpu_torch.ops.bvh import morton_codes
 from raytracerfacility_tpu_torch.ops.math3d import sample_hemisphere
@@ -263,15 +267,17 @@ def _shade_plain(mat_table, env, st, rng, hit, is_first, has_cont):
     return new, torch.where(cont, rng2, rng), aov
 
 
-def trace_shade_plain(tables, env, st, rng, tmin, is_first, has_cont):
+def trace_shade_plain(tables, env, st, rng, tmin, is_first, has_cont, hit=None):
     """One trace+shade segment for the rays of ``st`` (13, R) / ``rng``
     (R,) int32, computed for the live ones only. Dead rays keep their
-    state; on ``is_first`` their AOVs are the no-hit defaults. Returns
-    (new st, new rng, aov (9, R) or None)."""
+    state; on ``is_first`` their AOVs are the no-hit defaults. ``hit``,
+    (t, nx, ny, nz, mid) planes of all R rays, replaces the brute-force
+    trace. Returns (new st, new rng, aov (9, R) or None)."""
     table, _, _, mat_table = tables
     live = torch.nonzero(st[ACT] > 0.0)[:, 0]
     sub_st, sub_rng = st[:, live], rng[live]
-    hit = _trace_plain(table, sub_st, tmin)
+    hit = (_trace_plain(table, sub_st, tmin) if hit is None
+           else tuple(h[live] for h in hit))
     new_sub, new_rng, sub_aov = _shade_plain(
         mat_table, env, sub_st, sub_rng, hit, is_first, has_cont)
     st = st.clone()
@@ -366,12 +372,13 @@ def sls_shadow_rays(env, st, rng, hit):
     return normal, ndl, armed, shadow
 
 
-def _shade_sls_plain(tables, env, st, rng, hit):
+def _shade_sls_plain(tables, env, st, rng, hit, occluded=None):
     """SingleLightSource shade of traced camera rays (ref
     pallas_fused.py:424-639): miss colour; on a hit emission, ambient and
     one sun-cone sample whose shadow ray (any-hit over the same table
     from the hit point, tmin 1e-3) adds the sun's colour times N.L when
-    unoccluded. Returns (radiance (3, R), aov (9, R))."""
+    unoccluded. ``occluded`` (R,) bool replaces the brute-force shadow
+    trace. Returns (radiance (3, R), aov (9, R))."""
     table, _, _, mat_table = tables
     bt, _, _, _, bmid = hit
     hitm = bt < _HIT_MAX
@@ -386,7 +393,8 @@ def _shade_sls_plain(tables, env, st, rng, hit):
     ar, ag, ab, em = m[:, 0], m[:, 1], m[:, 2], m[:, 5]
     (nx, ny, nz), ndl, armed, shadow = sls_shadow_rays(env, st, rng, hit)
     hx, hy, hz = shadow[0], shadow[1], shadow[2]
-    occluded = _any_plain(table, shadow, bt.shape[0], kinds=False)[1] >= 0.0
+    if occluded is None:
+        occluded = _any_plain(table, shadow, bt.shape[0], kinds=False)[1] >= 0.0
     rr = torch.where(hitm, rr + tr * em * ar, rr)
     rg = torch.where(hitm, rg + tg * em * ag, rg)
     rb = torch.where(hitm, rb + tb * em * ab, rb)
@@ -423,14 +431,119 @@ def _fused_sls_plain(tables, rays, rng, env):
     return out, torch.tensor(live.shape[0], dtype=torch.int64, device=st.device)
 
 
+class SweepReplay(NamedTuple):
+    """One warp sweep of K2 or K2-SLS as ``sweep.sweep`` replays it: every
+    lane of the pool in place (warps of 32 in ray order), the lanes in
+    ``live`` sweeping."""
+    o: torch.Tensor  # (R, 3) origins
+    d: torch.Tensor  # (R, 3) directions
+    tmin: torch.Tensor  # (R,)
+    live: torch.Tensor  # (R,) bool
+    record: dict  # sweep.sweep's record: t, nx, ny, nz, mid, id
+    counts: torch.Tensor  # (5, R) int32, sweep.STATS
+    warp_rows: torch.Tensor  # (ceil(R / 32),) int32
+
+
+def _replay_sweep(tables, chunk, o, d, tmin, live, any_hit=False, order="warp",
+                  pad=True, pairs=None):
+    """A sweep of the whole-path kernels over the 20-column table from best
+    t = TMAX (``sweep.sweep``'s arguments). The shadow sweep (``any_hit``)
+    starts each lane with id -1, which no row's id is below, as the
+    kernel's ``ShadowRows``: a row accepts iff its t < TMAX."""
+    tmax = torch.full_like(tmin, sweep.K1_TMAX)
+    best0 = None
+    if any_hit:
+        z = torch.zeros_like(tmin)
+        best0 = {"t": tmax, "id": torch.full_like(tmin, -1.0), "nx": z, "ny": z,
+                 "nz": z, "mid": z}
+    rec, counts, wrows = sweep.sweep(*tables[:3], chunk, o, d, tmin, tmax, live, "k1",
+                                     any_hit=any_hit, order=order, pad=pad,
+                                     best0=best0, pairs=pairs)
+    return SweepReplay(o, d, tmin, live, rec, counts, wrows)
+
+
+def _fused_path_replay(tables, rays, rng, env, bounces, chunk, order="warp",
+                       pad=True):
+    """:func:`fused_path` with each segment's trace replayed as the kernel
+    sweeps it (:func:`_replay_sweep`; a finished path sweeps nothing, no
+    ray is compacted away) and shaded by the plain step. Returns ((12, R)
+    planes, live count, a :class:`SweepReplay` a segment)."""
+    st = init_state(rays[0:3].T, rays[3:6].T, rays[6])
+    n = st.shape[1]
+    aov, segments = None, []
+    live = torch.zeros((), dtype=torch.int64, device=rays.device)
+    for s in range(bounces + 1):
+        on = st[ACT] > 0.0
+        live = live + torch.count_nonzero(on)
+        tmin = torch.full((n,), float(env[10]) if s == 0 else _BOUNCE_TMIN,
+                          dtype=torch.float32, device=rays.device)
+        replay = _replay_sweep(tables, chunk, st[OX:OZ + 1].T, st[DX:DZ + 1].T, tmin,
+                               on, order=order, pad=pad)
+        segments.append(replay)
+        hit = tuple(replay.record[k] for k in ("t", "nx", "ny", "nz", "mid"))
+        st, rng, a = trace_shade_plain(tables, env, st, rng, None, s == 0,
+                                       s < bounces, hit=hit)
+        if s == 0:
+            aov = a
+    return torch.cat([st[RR:RB + 1], aov]), live, segments
+
+
+def _fused_sls_replay(tables, rays, rng, env, chunk, order="warp", pad=True):
+    """:func:`fused_sls` with the closest hit and the shadow rays replayed
+    as the kernel sweeps them (:func:`_replay_sweep`; the shadow ray of a
+    lane that missed or faces away from the sun sweeps nothing): order
+    "warp" is the kernel's (the shadow sweep visits its chunks in index
+    order, with pairs), order "index" the one-thread kernel's before it.
+    Returns ((12, R) planes, live count, [closest-hit replay, shadow
+    replay])."""
+    st = init_state(rays[0:3].T, rays[3:6].T, rays[6])
+    n = st.shape[1]
+    on = st[ACT] > 0.0
+    tmin = torch.full((n,), float(env[10]), dtype=torch.float32, device=rays.device)
+    closest = _replay_sweep(tables, chunk, st[OX:OZ + 1].T, st[DX:DZ + 1].T, tmin,
+                            on, order=order, pad=pad)
+    live = torch.nonzero(on)[:, 0]
+    sub = st[:, live]
+    hit = tuple(closest.record[k][live] for k in ("t", "nx", "ny", "nz", "mid"))
+    _, _, armed, shadow = sls_shadow_rays(env, sub, rng[live], hit)
+    o = torch.zeros((n, 3), dtype=torch.float32, device=rays.device)
+    d = torch.zeros_like(o)
+    cast = torch.zeros((n,), dtype=torch.bool, device=rays.device)
+    o[live], d[live], cast[live] = shadow[0:3].T, shadow[3:6].T, armed
+    shade = _replay_sweep(tables, chunk, o, d, torch.full_like(tmin, _BOUNCE_TMIN),
+                          cast, any_hit=True, order="index", pad=pad,
+                          pairs=order == "warp")
+    radiance, aov = _shade_sls_plain(tables, env, sub, rng[live], hit,
+                                     occluded=shade.record["id"][live] >= 0.0)
+    out = torch.zeros((12, n), dtype=torch.float32, device=rays.device)
+    out[9:12] = _NO_HIT
+    out[:, live] = torch.cat([radiance, aov])
+    return (out, torch.tensor(live.shape[0], dtype=torch.int64, device=rays.device),
+            [closest, shade])
+
+
+def _replay_counts(replays, stacked: bool):
+    """A kernel's counters from its sweeps' replays: summed over K2's
+    segments ((5, R) and (ceil(R / 32),) int32), or one record a sweep for
+    K2-SLS (``stacked``: (2, 5, R) and (2, ceil(R / 32)))."""
+    counts = torch.stack([r.counts for r in replays])
+    wrows = torch.stack([r.warp_rows for r in replays])
+    if stacked:
+        return counts, wrows
+    return counts.sum(0, dtype=torch.int32), wrows.sum(0, dtype=torch.int32)
+
+
 def _launch_pool(fn: str, name: str, tables, rays, rng, env, chunk: int,
-                 *extra):
+                 *extra, stats=None):
     """Validate a camera pool and launch ``fn`` of the path library over
     it: ``rays`` (7, R) float32 planes, ``rng`` (R,) int32. Returns the
-    (12, R) output planes and the live count."""
+    (12, R) output planes and the live count, and with ``stats``, the
+    leading shape of the counter records, the (*stats, 5, R) counters and
+    the (*stats, ceil(R / 32)) warp row iterations."""
     n = rays.shape[1]
     device = rays.device
     check_kernel_inputs(tables, env, chunk, n, 12, device)
+    sweep.check_sweep_tables(tables[:3])
     if (rays.dtype != torch.float32 or rays.shape[0] != 7
             or not rays.is_contiguous() or rng.dtype != torch.int32
             or rng.shape != (n,) or not rng.is_contiguous()
@@ -441,62 +554,85 @@ def _launch_pool(fn: str, name: str, tables, rays, rng, env, chunk: int,
     out = torch.empty((12, n), dtype=torch.float32, device=device)
     counts = torch.zeros((kernels.blocks_for(n),), dtype=torch.int32,
                          device=device)
-    if n == 0:
-        return out, counts.sum(dtype=torch.int64)
-    err = getattr(kernels.library(), fn)(
-        rays.data_ptr(), rng.data_ptr(), out.data_ptr(), counts.data_ptr(),
-        table.data_ptr(), sub_aabbs.data_ptr(), chunk_aabbs.data_ptr(),
-        mat_table.data_ptr(), env.data_ptr(),
-        n, table.shape[0] // chunk, chunk, table.shape[0] // sub_aabbs.shape[0],
-        *extra, ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream))
-    kernels.LAUNCHES[name] += 1
-    kernels.check(err, name)
-    return out, counts.sum(dtype=torch.int64)
+    work = () if stats is None else (
+        torch.zeros((*stats, len(sweep.STATS), n), dtype=torch.int32, device=device),
+        torch.zeros((*stats, -(-n // sweep.WARP)), dtype=torch.int32, device=device))
+    if n > 0:
+        err = getattr(kernels.library(), fn)(
+            rays.data_ptr(), rng.data_ptr(), out.data_ptr(), counts.data_ptr(),
+            table.data_ptr(), sub_aabbs.data_ptr(), chunk_aabbs.data_ptr(),
+            mat_table.data_ptr(), env.data_ptr(),
+            *([w.data_ptr() for w in work] or [None, None]),
+            n, table.shape[0] // chunk, chunk, table.shape[0] // sub_aabbs.shape[0],
+            *extra, ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream))
+        kernels.LAUNCHES[name] += 1
+        kernels.check(err, name)
+    return (out, counts.sum(dtype=torch.int64), *work)
 
 
-def fused_path(tables, rays, rng, env, bounces: int, chunk: int):
+def fused_path(tables, rays, rng, env, bounces: int, chunk: int, stats: bool = False):
     """Trace and shade every segment of every ray (kernel K2).
 
     ``rays`` (7, R) float32 planes: origin xyz, direction xyz, valid;
     ``rng`` (R,) int32; ``env`` the (16,) environment vector. Returns
     ((12, R) float32 planes: radiance rgb, first-hit normal, albedo,
-    position; live-ray count as an int64 scalar tensor).
+    position; live-ray count as an int64 scalar tensor). With ``stats`` it
+    also returns the sweep's counters summed over the segments, (5, R)
+    int32 in ``sweep.STATS`` order and (ceil(R / 32),) int32 row
+    iterations a warp: the kernel's own on the card, the replay's
+    (:func:`_fused_path_replay`, order "warp") on the CPU.
 
     Replaces ``raytracerfacility_tpu/ops/pallas_fused.py:217 _kernel``
     (Scene lighting). On the H100 the kernel is bound by the table rows
-    each ray loads in its traversal loop (20 floats per triangle, about
-    40 flops of intersection per row): one thread per ray keeps the whole
-    path in registers across all segments, culls per ray against chunk
-    and 16-row sub-run boxes, and the rows a warp shares are served from
-    L1/L2 (the 2.8k-row bench table is 225 KB). Dead threads idle until
-    their warp finishes, which a reorder between segments would fix
-    (that is ``ops/seg.py``'s engine)."""
+    its warps test (20 floats and about 55 operations a triangle), and a
+    warp pays for the union of its rays' rows. One thread keeps a ray's
+    whole path in registers; each segment is ``csrc/sweep.cuh``'s warp
+    sweep, as K1's (``ops/seg.py::segment``): the warp visits the chunks
+    its rays enter front to back by their least entry, culls chunks and
+    16-row runs per lane, skips by ballot what no lane enters and tests a
+    run few lanes enter as (ray, row) pairs over the warp, which is what
+    incoherent bounce rays need. A warp runs segments while any of its
+    lanes is live; a finished path idles in it (a reorder between
+    segments is ``ops/seg.py``'s engine)."""
     if rays.device.type == "cpu":
-        return _fused_path_plain(tables, rays, rng, env, bounces)
+        out, live = _fused_path_plain(tables, rays, rng, env, bounces)
+        if not stats:
+            return out, live
+        replays = _fused_path_replay(tables, rays, rng, env, bounces, chunk)[2]
+        return (out, live, *_replay_counts(replays, stacked=False))
     if rays.device.type != "cuda":
         raise ValueError(f"no kernel for device {rays.device}")
     return _launch_pool("rtf_fused_path", "fused_path_kernel", tables, rays,
-                        rng, env, chunk, bounces)
+                        rng, env, chunk, bounces, stats=() if stats else None)
 
 
-def fused_sls(tables, rays, rng, env, chunk: int):
+def fused_sls(tables, rays, rng, env, chunk: int, stats: bool = False):
     """The SingleLightSource camera segment of every ray (kernel K2-SLS):
     arguments and results as :func:`fused_path`; the path ends at its
-    first hit.
+    first hit. With ``stats`` the counters come as two records, the
+    closest-hit sweep's and the shadow sweep's: (2, 5, R) and
+    (2, ceil(R / 32)) int32 (on the CPU :func:`_fused_sls_replay`'s).
 
     Replaces the SingleLightSource phase of
     ``raytracerfacility_tpu/ops/pallas_fused.py:217 _kernel``
     (``:424-639``). On the H100 it is bound like K2 by the rows its
-    closest-hit sweep and then its shadow sweep load (20 floats and about
-    40 flops per triangle visited): one thread per ray walks its own
-    shadow ray right after its closest hit, with its own chunk and
-    sub-run culling, and stops at the first occluder."""
+    closest-hit sweep and then its shadow sweep test (20 floats and about
+    55 operations per triangle). Both are ``csrc/sweep.cuh``'s warp
+    sweep: the closest hit as K1's segment 0, then an any-hit sweep of the
+    shadow rays from the hit points in chunk index order (keys, which
+    order the chunks front to back, buy an any-hit ray nothing), where a
+    lane leaves at its first occluder and a run few lanes enter is tested
+    as (ray, row) pairs."""
     if rays.device.type == "cpu":
-        return _fused_sls_plain(tables, rays, rng, env)
+        out, live = _fused_sls_plain(tables, rays, rng, env)
+        if not stats:
+            return out, live
+        replays = _fused_sls_replay(tables, rays, rng, env, chunk)[2]
+        return (out, live, *_replay_counts(replays, stacked=True))
     if rays.device.type != "cuda":
         raise ValueError(f"no kernel for device {rays.device}")
     return _launch_pool("rtf_fused_sls", "fused_sls_kernel", tables, rays,
-                        rng, env, chunk)
+                        rng, env, chunk, stats=(2,) if stats else None)
 
 
 def render_pool_fused(tables, origin, direction, rng, valid, env_rgb,

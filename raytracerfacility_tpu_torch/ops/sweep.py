@@ -16,7 +16,10 @@ chunk, run and row decisions of one of two designs, step for step:
   is tested one lane a ray, a run fewer enter as (ray, row) pairs spread
   over the warp;
 - ``order="index"``: the one-thread-a-ray kernels before them, which test
-  every chunk in index order with no warp order.
+  every chunk in index order with no warp order; with ``pairs`` it is
+  K2-SLS's unkeyed any-hit sweep (``warp_sweep<..., kKeyed = false>``),
+  which visits the chunks some lane enters in index order and tests runs
+  as the keyed sweep does.
 
 ``pad`` applies the kernels' cull pad (``near - |near| * CULL_PAD``); the
 unpadded cull is the earlier kernels'. The slab arithmetic is the kernels',
@@ -118,7 +121,7 @@ def _test_rows(layout, rows, o, d, tmin):
 def sweep(table, subs, chunks, chunk: int, o, d, tmin, tmax, live,
           layout: str, any_hit: bool = False, order: str = "warp",
           pad: bool = True, best0=None, skip_inverted: bool = False,
-          groups=None):
+          groups=None, pairs: bool | None = None):
     """Replay the culled sweep over ``table`` (K1's 20-column or K3's
     12-column rows), ``subs`` (run boxes, K3's run kind in column 6) and
     ``chunks`` for rays ``o``, ``d`` (n, 3) with windows ``tmin``, ``tmax``
@@ -129,7 +132,9 @@ def sweep(table, subs, chunks, chunk: int, o, d, tmin, tmax, live,
     runs whose box is inverted (K4's padding runs); ``groups``, the boxes
     of each :data:`CHUNK_GROUP` chunks, cull the keys first (K4: a lane
     keys a group's chunks only if it enters the group's box, and a group
-    no lane enters is passed over; its slab tests count as chunk slabs). Returns (record: dict
+    no lane enters is passed over; its slab tests count as chunk slabs).
+    ``pairs``: whether runs at most :data:`PAIR_LANES` lanes enter are
+    tested as (ray, row) pairs (default: in the "warp" order). Returns (record: dict
     of (n,) tensors, K1 t/nx/ny/nz/mid/id, K3 t/id/u/v, and "rounds", the
     lane's warp's rounds; counters (5, n) int32 in :data:`STATS` order;
     warp row iterations (ceil(n / 32),) int32)."""
@@ -164,7 +169,8 @@ def sweep(table, subs, chunks, chunk: int, o, d, tmin, tmax, live,
     # the kernels key and visit at most LIST_CAP entered chunks a round;
     # the index order has no list: one round over every chunk
     cap = LIST_CAP if order == "warp" else max(1, nchunks)
-    pairs_fit = sub <= WARP and sub & (sub - 1) == 0
+    pairs_fit = (sub <= WARP and sub & (sub - 1) == 0
+                 and (order == "warp" if pairs is None else pairs))
     lane = torch.arange(WARP, device=dev)
     sub_k = torch.arange(sub, device=dev)
     run_j = torch.arange(runs, device=dev)
@@ -260,7 +266,7 @@ def sweep(table, subs, chunks, chunk: int, o, d, tmin, tmax, live,
                 # lanes a warp has in the run: at most PAIR_LANES (warp
                 # order) and the warp tests (ray, row) pairs on all lanes
                 k_w = in_run.view(-1, WARP).sum(1)
-                paired = (k_w <= PAIR_LANES) & pairs_fit & (order == "warp")
+                paired = (k_w <= PAIR_LANES) & pairs_fit
                 wrows.index_add_(0, wi, torch.where(
                     k_w == 0, 0, torch.where(paired, (k_w * sub + WARP - 1) // WARP, sub)))
                 sel = torch.nonzero(in_run)[:, 0]

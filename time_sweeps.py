@@ -1,15 +1,19 @@
 #!/usr/bin/env python3
-"""Time the port's trace kernels K1 (``seg_segment_kernel``), K3
+"""Time the port's trace kernels K1 (``seg_segment_kernel``), K2
+(``fused_path_kernel``), K2-SLS (``fused_sls_kernel``), K3
 (``brute_trace_kernel``), K4 (``inst_trace_kernel``) and K5
 (``bvh_trace_kernel``) at the launches ``chip_smoke.py`` times them, for
 the port package of one tree, so that two trees compare inside one call:
 
-    python3 time_sweeps.py [--tree DIR] [--reps 5] [--only K4,K5]
+    python3 time_sweeps.py [--tree DIR] [--reps 5] [--only K2,K2-SLS]
+    python3 time_sweeps.py --alternate DIR[,DIR...] [--rounds 40] [--only K2]
 
 ``--tree`` names a checkout whose ``raytracerfacility_tpu_torch`` is
 imported (default: this file's own); its kernels build into that tree's
 ``build/rtf_torch/``. Shapes: the bench scene at 1920x1080, segments 0 and
-1 (K1); BASELINE config 4's first presorted launch (K1); config 6's first
+1 (K1); the bench scene's 256x256 x 4-frame pool, 8 bounces (K2), and the
+first launch of its SingleLightSource 1080p path (K2-SLS); BASELINE config
+4's first presorted launch (K1); config 6's first
 two segmented launches at 512x512 x 2 frames (K1); config 7's first launch at
 512x512 x 8 frames (K3 closest) and its SingleLightSource shadow rays (K3
 any-hit); the forest (1,024 x 262,144 triangles) and the config-6 canopy
@@ -20,6 +24,13 @@ rays, config 7's first walker launch at 2 frames and config 4's first
 of ``--reps`` CUDA-event timings of one launch (K1's inputs are cloned
 inside the window, as ``chip_smoke.py`` does). Needs one CUDA device;
 prints the card's ``nvidia-smi`` name and power limit, then one JSON line.
+
+``--alternate`` times K2 and K2-SLS of this tree and of each DIR in one
+process instead: each tree's ``csrc/path.cu`` is built into a library of
+its own and launched through its C entry on the same pools, the trees in
+turns, for ``--rounds`` rounds (a sample: the mean of 3 launches back to
+back), so that drift over the call falls on every tree alike; a
+difference of 1% shows where separate processes spread by 5%.
 """
 
 from __future__ import annotations
@@ -91,7 +102,9 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--tree", default=str(pathlib.Path(__file__).resolve().parent))
     ap.add_argument("--reps", type=int, default=5)
-    ap.add_argument("--only", default="K1,K3,K4,K5")
+    ap.add_argument("--only", default="K1,K2,K2-SLS,K3,K4,K5")
+    ap.add_argument("--alternate", default="")
+    ap.add_argument("--rounds", type=int, default=40)
     args = ap.parse_args()
     only = set(args.only.split(","))
     sys.path.insert(0, str(pathlib.Path(args.tree).resolve()))
@@ -109,8 +122,13 @@ def main() -> int:
     kernels.build()
     dev = torch.device("cuda", 0)
     ms = {}
+    if args.alternate:
+        alternate_k2(args, dev, ms, only, [args.tree, *args.alternate.split(",")])
+        only = set()
     if "K1" in only:
         time_k1_shapes(args, dev, ms)
+    if only & {"K2", "K2-SLS"}:
+        time_k2_shapes(args, dev, ms, only)
     if "K3" in only:
         time_k3_shapes(args, dev, ms)
     if "K4" in only:
@@ -284,6 +302,132 @@ def time_k1_shapes(args, dev, ms):
             init_frame(512, 512, dev), 2), lambda a, s=s: a["is_first"] == (s == 0))
         time_k1(f"K1 config 6 segment {s}", launch)
     del c6, launch
+
+
+def _k2_pools(dev, only):
+    """The pools ``chip_smoke.py`` times K2 and K2-SLS on: {name: (C entry,
+    compiled scene, rays, rng, env, bounces or None)}. K2: the bench
+    scene's 256x256 x 4-frame pool at 8 bounces; K2-SLS: the first launch
+    of its SingleLightSource 1080p path (a low sun with a finite disk)."""
+    import torch
+
+    from raytracerfacility_tpu_torch.models.pathtracer import (
+        RenderConfig,
+        _env_vector,
+        camera_pool,
+    )
+    from raytracerfacility_tpu_torch.models.renderer import EnvironmentProperties
+    from raytracerfacility_tpu_torch.ops.rng import to_int32
+    from raytracerfacility_tpu_torch.scenes import bench_scene
+
+    def pool(width, height, frames):
+        scene, cam, env = bench_scene(width, height)
+        compiled = scene.build(dev)
+        seed = torch.arange(frames, dtype=torch.int64, device=dev)[:, None, None]
+        o, d, rng, _, env_vec = camera_pool(
+            compiled, cam.state(dev), env.state(dev),
+            RenderConfig(width=width, height=height, bounces=8), seed)
+        rays = torch.cat([o.T, d.T, torch.ones(1, o.shape[0], device=dev)]).contiguous()
+        return compiled, rays, to_int32(rng).contiguous(), env_vec
+
+    pools = {}
+    if "K2" in only:
+        pools["K2 256x256 x 4 frames, 8 bounces"] = ("rtf_fused_path",
+                                                     *pool(256, 256, 4), 8)
+    if "K2-SLS" in only:
+        compiled, rays, rng, _ = pool(1920, 1080, 1)
+        env = _env_vector(EnvironmentProperties(
+            sun_direction=(0.45, 0.75, 0.35), light_size=0.05,
+            ambient_light_intensity=0.2).state(dev))
+        pools["K2-SLS first SLS 1080p launch"] = ("rtf_fused_sls", compiled, rays,
+                                                  rng, env, None)
+    return pools
+
+
+def time_k2_shapes(args, dev, ms, only):
+    """K2 and K2-SLS through their wrappers on :func:`_k2_pools`."""
+    from raytracerfacility_tpu_torch.ops import fused
+
+    for name, (_, c, rays, rng, env, bounces) in _k2_pools(dev, only).items():
+        if bounces is None:
+            ms[name] = _median_ms(lambda: fused.fused_sls(
+                c.fused, rays, rng, env, c.fused_chunk), args.reps)
+        else:
+            ms[name] = _median_ms(lambda: fused.fused_path(
+                c.fused, rays, rng, env, bounces, c.fused_chunk), args.reps)
+
+
+def alternate_k2(args, dev, ms, only, trees):
+    """K2 and K2-SLS of several trees in one process, in turns (the
+    module's ``--alternate``): each tree's ``csrc/path.cu`` built into
+    ``build/rtf_torch/alternate/``, its C entry called on
+    :func:`_k2_pools` (without counters, the entry's arguments read from
+    its declaration). Every tree's output must equal the first's. Prints
+    each tree's median, quartiles and the rounds it beat the first tree."""
+    import ctypes
+    import re
+    import statistics
+
+    import torch
+
+    from raytracerfacility_tpu_torch import kernels
+
+    out_dir = kernels.BUILD_DIR / "alternate"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    sources = [pathlib.Path(t) / "raytracerfacility_tpu_torch" / "csrc" / "path.cu"
+               for t in trees]
+    procs = [subprocess.Popen([kernels._nvcc(), *kernels.NVCC_FLAGS, "-o",
+                               str(out_dir / f"path{k}.so"), str(src)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for k, src in enumerate(sources)]
+    for proc in procs:
+        log = proc.communicate(timeout=600)[0]
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed:\n{log}")
+    stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+    for name, (entry, c, rays, rng, env, bounces) in _k2_pools(dev, only).items():
+        table, subs, chunks, mats = c.fused
+        n = rays.shape[1]
+        ints = [n, table.shape[0] // c.fused_chunk, c.fused_chunk,
+                table.shape[0] // subs.shape[0]] + ([] if bounces is None else [bounces])
+        calls = []
+        for k, src in enumerate(sources):
+            decl = re.search(rf"int {entry}\(([^)]*)\)", src.read_text()).group(1)
+            pointers = decl.count("void*")  # the stream's included
+            fn = getattr(ctypes.CDLL(str(out_dir / f"path{k}.so")), entry)
+            fn.restype = ctypes.c_int
+            fn.argtypes = ([ctypes.c_void_p] * (pointers - 1)
+                           + [ctypes.c_int] * len(ints) + [ctypes.c_void_p])
+            out = torch.empty((12, n), dtype=torch.float32, device=dev)
+            counts = torch.zeros((kernels.blocks_for(n),), dtype=torch.int32, device=dev)
+            ptrs = [rays.data_ptr(), rng.data_ptr(), out.data_ptr(), counts.data_ptr(),
+                    table.data_ptr(), subs.data_ptr(), chunks.data_ptr(),
+                    mats.data_ptr(), env.data_ptr()] + [None] * (pointers - 10)
+            calls.append((lambda fn=fn, ptrs=ptrs: fn(*ptrs, *ints, stream), out))
+        for launch, _ in calls:
+            kernels.check(launch(), entry)
+        torch.cuda.synchronize()
+        same = [torch.equal(out, calls[0][1]) for _, out in calls]
+        times = [[] for _ in calls]
+        for r in range(args.rounds):
+            for k in [(r + j) % len(calls) for j in range(len(calls))]:
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                for _ in range(3):
+                    calls[k][0]()
+                end.record()
+                end.synchronize()
+                times[k].append(start.elapsed_time(end) / 3)
+        for tree, t, eq in zip(trees, times, same):
+            q = statistics.quantiles(t, n=4)
+            wins = sum(a < b for a, b in zip(t, times[0]))
+            print(f"{name} [{tree}]: median {statistics.median(t):.4f} ms, quartiles "
+                  f"{q[0]:.4f}-{q[2]:.4f}, faster than [{trees[0]}] in {wins} of "
+                  f"{args.rounds} rounds; output equal to it: {eq}")
+            ms[f"{name} [{tree}]"] = (statistics.median(t), t)
+        if not all(same):
+            raise AssertionError(f"{name}: the trees' outputs differ")
 
 
 def time_k3_shapes(args, dev, ms):
