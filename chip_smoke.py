@@ -41,6 +41,15 @@ its kernels:
   and on the LBVH walker (K5); K6 against its plain version on every
   captured launch; the 1080p path with the block reorder, whose frame must
   equal the default one.
+- BASELINE config 5 (``bench.py:242-269``): the bench scene at 512x512
+  through the ``RayTracerCamera`` facade (4 bounces, 1 spp, the packaged
+  CNN denoiser at strength 1; one K2 launch) and a 500 x 500-beam
+  ``PointCloudScanner`` sweep over the same compiled scene (one K3
+  closest-hit launch), timed as Mqueries/s with its split; K2 and K3
+  against their plain versions on those launches, the scan again on the
+  LBVH walker (K5) against K3, the denoiser on the card against the CPU,
+  and the reference's denoiser quality gates (SSIM against
+  ``tests/goldens``) on its held-out Cornell and strands poses.
 
 K2 and K2-SLS must equal their plain versions on all 12 output planes of
 every ray (K2-SLS at least on ``HIT_AGREE`` of them), and their work
@@ -238,21 +247,30 @@ def check_k1_launch(launch, rays, what):
 
 
 def check_k2(device, width, height, frames, bounces):
-    """K2 against its plain version on a pool of ``frames`` pooled frames:
-    all 12 output planes equal on every ray, the live counts equal.
-    Returns the largest |d| of the radiance (0)."""
+    """K2 against its plain version (:func:`hold_k2`) on a camera pool of
+    ``frames`` pooled frames of the bench scene."""
     import torch
 
-    from raytracerfacility_tpu_torch.ops import fused
     from raytracerfacility_tpu_torch.ops.rng import to_int32
 
     compiled, env, o, d, rng = _camera_pool(width, height, frames, device)
     n = o.shape[0]
     rays = torch.cat([o.T, d.T, torch.ones(1, n, device=device)]).contiguous()
     rng = to_int32(rng).contiguous()
-    out_k, cnt_k = fused.fused_path(compiled.fused, rays, rng, env, bounces,
-                                    compiled.fused_chunk)
-    out_p, cnt_p = fused._fused_path_plain(compiled.fused, rays, rng, env, bounces)
+    return hold_k2(compiled.fused, rays, rng, env, bounces, compiled.fused_chunk)
+
+
+def hold_k2(tables, rays, rng, env, bounces, chunk):
+    """K2 against its plain version on one launch's inputs: all 12 output
+    planes equal on every ray, the live counts equal. Returns the largest
+    |d| of the radiance (0)."""
+    import torch
+
+    from raytracerfacility_tpu_torch.ops import fused
+
+    n = rays.shape[1]
+    out_k, cnt_k = fused.fused_path(tables, rays, rng, env, bounces, chunk)
+    out_p, cnt_p = fused._fused_path_plain(tables, rays, rng, env, bounces)
     torch.cuda.synchronize()
     worst = _check_color(out_k[0:3], out_p[0:3], "radiance")
     q = max(_check_aov(out_k[k], out_p[k], f"aov plane {k}") for k in range(3, 12))
@@ -602,6 +620,38 @@ def bound(nbytes, tri, cur):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def k2_tests(tables, chunk, rays, rng, env, bounces):
+    """K2's triangle tests on a pool: every segment of the plain replay,
+    each culled at its hit; and the share of live lanes in the warps (32
+    rays in pool order) that run each segment, which a reorder inside the
+    kernel would raise to 1. Returns (tests, shares by segment, live lane
+    segments, running warp segments)."""
+    import torch
+
+    from raytracerfacility_tpu_torch.ops import fused
+
+    st, r, tri = fused.init_state(rays[0:3].T, rays[3:6].T, rays[6]), rng, 0
+    shares, lane_segs, warp_segs = [], 0, 0
+    for s in range(bounces + 1):
+        lanes = (st[fused.ACT] > 0.0).view(-1, 32)
+        runs = lanes.any(1)
+        shares.append(float(lanes[runs].float().mean()) if bool(runs.any()) else 0.0)
+        lane_segs += int(lanes.sum())
+        warp_segs += int(runs.sum())
+        live = torch.nonzero(st[fused.ACT] > 0.0)[:, 0]
+        sub = st[:, live].contiguous()
+        tmin = 0.0 if s == 0 else fused._BOUNCE_TMIN
+        hit = fused._trace_plain(tables[0], sub, tmin)
+        planes = [sub[k] for k in range(fused.OX, fused.DZ + 1)] + [
+            torch.full((sub.shape[1],), float(tmin), device=sub.device)]
+        tri += culled_tests(tables, chunk, planes, sub.shape[1], hit[0])[0]
+        new, new_rng, _ = fused._shade_plain(tables[3], env, sub, r[live], hit,
+                                             s == 0, s < bounces)
+        st, r = st.clone(), r.clone()
+        st[:, live], r[live] = new, new_rng
+    return tri, shares, lane_segs, warp_segs
+
+
 def k1_shape(launch, ms, bnd, by, best_t, what, warps=SAMPLE_WARPS):
     """A K1 launch's JSON numbers: its time and bound, and the sweep's
     work on a sample of its warps (:func:`sweep_work`) from a ``stats``
@@ -869,7 +919,9 @@ def _slab_enter(lo, hi, o, iv, tmin, bt):
     reciprocal directions iv (..., 3), windows tmin and best t (...)."""
     import torch
 
-    t1, t2 = (lo - o) * iv, (hi - o) * iv
+    from raytracerfacility_tpu_torch.ops.sweep import parallel_slabs
+
+    t1, t2 = parallel_slabs((lo - o) * iv, (hi - o) * iv, lo, hi, o, iv)
     near = torch.minimum(t1, t2).amax(-1)
     far = torch.maximum(t1, t2).amin(-1)
     return (near <= far) & (far > tmin) & (near <= bt)
@@ -1828,6 +1880,241 @@ def illumination_phase(device, totals, render_1080p, frame_1080p, rays_1080p):
 
 
 
+# BASELINE config 5 (bench.py:242-269): the bench scene at 512x512 through
+# the camera facade (4 bounces, 1 spp, denoiser strength 1) and a LiDAR
+# sweep of 500 x 500 beams over the same compiled scene
+C5 = 512
+C5_SCAN = dict(size=(2.0, 2.0), distance=(0.004, 0.004))
+C5_POSITION = (0.0, 1.0, 2.5)
+C5_BEAMS = 500 * 500
+# the CPU tests' bf16 image gate (tests/test_torch_denoiser.py): |d| over
+# the reference image's 99th-percentile magnitude
+DENOISE_P99, DENOISE_MAX = 5e-2, 1e-1
+# the reference's quality gates on its held-out poses
+# (tests/test_denoiser_quality.py:76-79): scene, golden, SSIM gate, the
+# reference's documented score
+DENOISE_EVAL = (("cornell", "denoiser_clean_96.npy", 0.60, 0.683),
+                ("strands", "denoiser_clean_strands_96.npy", 0.55, 0.563))
+
+
+def denoiser_work(base, height, width):
+    """(operations, activation bytes) of one denoise at (height, width):
+    2 x 9 x Cin x Cout a pixel of each 3x3 convolution at its scale (the
+    image padded to multiples of 4), and each convolution's bf16 input and
+    output read or written once."""
+    h, w = -(-height // 4) * 4, -(-width // 4) * 4
+    f = base
+    convs = [(1, 9, f), (1, f, f), (2, f, 2 * f), (2, 2 * f, 2 * f),
+             (4, 2 * f, 4 * f), (4, 4 * f, 4 * f), (2, 6 * f, 2 * f),
+             (2, 2 * f, 2 * f), (1, 3 * f, f), (1, f, f), (1, f, 3)]
+    ops = sum(2 * 9 * cin * cout * (h // s) * (w // s) for s, cin, cout in convs)
+    act = sum(2 * (cin + cout) * (h // s) * (w // s) for s, cin, cout in convs)
+    return ops, act
+
+
+def capture_k2(render):
+    """Run ``render()`` with K2's wrapper recording the inputs of its first
+    launch: (tables, rays, rng, env, bounces, chunk)."""
+    from raytracerfacility_tpu_torch.ops import fused
+
+    seen = []
+    real = fused.fused_path
+
+    def spy(tables, rays, rng, env, bounces, chunk, stats=False):
+        if not seen:
+            seen.append((tables, rays.clone(), rng.clone(), env.clone(), bounces, chunk))
+        return real(tables, rays, rng, env, bounces, chunk, stats)
+
+    fused.fused_path = spy
+    try:
+        render()
+    finally:
+        fused.fused_path = real
+    return seen[0]
+
+
+def eval_frame(make, device):
+    """The noisy 96 x 96 frame of a denoiser eval scene as the reference's
+    gate renders it (tests/test_denoiser_quality.py:95-104): 3 bounces,
+    1 spp, no accumulation, frame id 31."""
+    import dataclasses
+
+    from raytracerfacility_tpu_torch.models.pathtracer import (
+        RenderConfig,
+        init_frame,
+        render_frame,
+    )
+
+    scene, cam, env = make(96)
+    config = RenderConfig(width=96, height=96, bounces=3, samples=1, accumulate=False)
+    frame = dataclasses.replace(init_frame(96, 96, device), frame_id=31)
+    return render_frame(scene.build(device), cam.state(device), env.state(device),
+                        config, frame)
+
+
+def config5_phase(device, totals, smi):
+    """Phase 20: BASELINE config 5 through the port's entry points, counted
+    (one K2 launch for the render, one K3 closest-hit launch for the scan),
+    timed, its kernels held to their plain versions at its shapes, the
+    scan again on the LBVH walker (K5), the denoiser on the card against
+    the CPU, and the reference's denoiser quality gates on the card.
+    Returns the config-5 numbers of the K2 and the K3 closest-hit rows."""
+    import numpy as np
+    import torch
+
+    from raytracerfacility_tpu_torch.models.denoiser import default_denoiser
+    from raytracerfacility_tpu_torch.models.lidar import PointCloudScanner
+    from raytracerfacility_tpu_torch.models.renderer import RayProperties, RayTracerCamera
+    from raytracerfacility_tpu_torch.ops import brute, fused, traverse
+    from raytracerfacility_tpu_torch.scenes import bench_scene, cornell_eval, strands_eval
+    from raytracerfacility_tpu_torch.utils.image import ssim
+
+    scene, camprops, env = bench_scene(C5, C5)
+    cam = RayTracerCamera(scene, camera=camprops, device=device)
+    cam.camera.denoiser_strength = 1.0
+    scanner = PointCloudScanner(**C5_SCAN)
+    ray = RayProperties(bounces=4, samples=1)
+    state = {}
+
+    def render():
+        state["img"] = cam.render(env, ray)
+
+    def scan():
+        state["hits"] = scanner.scan(scene.build(device), position=C5_POSITION)
+
+    def both():
+        render()
+        scan()
+
+    t0 = time.perf_counter()
+    _, launches = counted(both, {"fused_path_kernel": 1,
+                                 "brute_trace_kernel<false>": 1}, totals)
+    cold_s = time.perf_counter() - t0
+    img, hits = state["img"], state["hits"]
+    print(f"phase 20: config 5, {C5}x{C5} render (4 bounces, 1 spp, denoised) + "
+          f"{C5_BEAMS} LiDAR beams: {hits} hits, cold {cold_s:.3f} s, launches "
+          f"{launches} [{smi}]")
+    if not (img.shape == (C5, C5, 4) and np.isfinite(img).all()
+            and (img[..., 3] == 1).all()):
+        raise AssertionError("the config-5 image is not finite (H, W, 4) with alpha 1")
+    if not (0 < hits <= C5_BEAMS and scanner.points.shape == (hits, 3)
+            and np.isfinite(scanner.points).all()):
+        raise AssertionError("the config-5 scan did not return finite hits")
+    if cam.frame.frame_id != 1 or float(img[..., :3].mean()) <= 0.0:
+        raise AssertionError("the config-5 frame is not the first, lit frame")
+
+    def wall(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t
+
+    med = {}
+    for name, fn in (("config 5", both), ("render", render), ("scan", scan)):
+        walls = sorted(wall(fn) for _ in range(5))
+        med[name] = (walls[2], walls)
+    wall_s, walls = med["config 5"]
+    rate = (C5_BEAMS + C5 * C5) / wall_s / 1e6
+    print(f"  config 5: {rate:.4f} Mqueries/s ({C5_BEAMS} + {C5 * C5} queries), "
+          f"median of 5 walls {wall_s * 1e3:.3f} ms "
+          f"({', '.join(f'{w * 1e3:.3f}' for w in walls)}), {state['hits']} hits "
+          f"[{smi}]")
+
+    # the kernels' launches at this path's shapes
+    k2_in = capture_k2(render)
+    k2_ms, k2_times = _median_ms(lambda: fused.fused_path(*k2_in))
+    k2_plain_ms = _timed(lambda: fused._fused_path_plain(*k2_in[:5]), 1)
+    frame = cam.frame
+    den_ms, _ = _median_ms(lambda: cam.denoiser.denoise(frame.color, frame.albedo,
+                                                        frame.normal))
+    tabs, planes, n = capture_k3(scan)[False]
+    k3_ms, k3_times = _median_ms(lambda: brute.trace_planes(tabs, planes, n, False))
+    print(f"  split (medians of 5): render wall {med['render'][0] * 1e3:.3f} ms, "
+          f"K2 {k2_ms:.3f} ms ({', '.join(f'{t:.3f}' for t in k2_times)}), denoise "
+          f"{den_ms:.3f} ms, scan wall {med['scan'][0] * 1e3:.3f} ms, K3 {k3_ms:.3f} "
+          f"ms ({', '.join(f'{t:.3f}' for t in k3_times)}) [{smi}]")
+    ops, act = denoiser_work(24, C5, C5)
+    io = _nbytes(frame.color, frame.albedo, frame.normal) + C5 * C5 * 3 * 4
+    den_bound = max(ops / 989e12, io / PEAK_BYTES) * 1e3
+    print(f"  denoiser: {ops / 1e9:.2f} GFLOP a call (bf16), activations "
+          f"{act / 2**20:.1f} MiB read and written once, {io / 2**20:.1f} MiB of "
+          f"frame in and image out; bound {den_bound:.4f} ms by operations at "
+          f"989 TFLOP/s bf16, measured {den_ms:.3f} ms")
+
+    print(f"  K2 vs plain on the render's launch ({k2_in[1].shape[1]} rays, "
+          f"{k2_in[4]} bounces)")
+    k2_err = hold_k2(*k2_in)
+    tri, shares, _, _ = k2_tests(k2_in[0], k2_in[5], k2_in[1], k2_in[2], k2_in[3],
+                                 k2_in[4])
+    k2_bound, k2_by = bound(_nbytes(*k2_in[0]) + 4 * 20 * k2_in[1].shape[1], tri, 0)
+    print(f"  K2: {tri} triangle tests after culling, bound {k2_bound:.4f} ms by "
+          f"{k2_by}, plain {k2_plain_ms:.3f} ms; live lanes a running warp by "
+          f"segment {', '.join(f'{x:.4f}' for x in shares)}")
+    print("  K3 vs plain on every beam of the scan's launch")
+    k3_err, k3_out, k3_plain_ms = check_k3(tabs, planes, n, False)
+    tri, cur = culled_tests(tabs, brute.TRI_CHUNK, planes, n, k3_out[0])
+    k3_bound, k3_by = bound(_nbytes(*tabs) + 4 * 12 * n, tri, cur)
+    print(f"  K3: {tri} triangle tests after culling, bound {k3_bound:.4f} ms by "
+          f"{k3_by}, plain {k3_plain_ms:.3f} ms")
+
+    # the scan's second route: the LBVH walker, held to its plain version
+    # and the reference's skip walk on every beam (check_k5), then to K3
+    k3_scan = scanner.construct_point_cloud(), scanner.handles
+    bvh_scene = scene.build(device, build_bvh=True)
+    _, launches = counted(lambda: scanner.scan(bvh_scene, position=C5_POSITION),
+                          {"bvh_trace_kernel<false>": 1}, totals)
+    print(f"  K5 vs plain on every beam of the LBVH scan, launches {launches}")
+    _, (_, prim5, _), _, _ = check_k5(bvh_scene.bvh, planes, n, False,
+                                      "config 5 scan")
+    differ = torch.nonzero(prim5.to(torch.int64) != k3_out[1].to(torch.int64))[:, 0]
+    d = (float(np.abs(scanner.points - k3_scan[0]).max())
+         if scanner.points.shape == k3_scan[0].shape else float("inf"))
+    print(f"  K5 scan: {scanner.points.shape[0]} hits (K3 {k3_scan[0].shape[0]}); "
+          f"prims differ from K3's on {differ.numel()} of {n} beams, points max "
+          f"|d| {d:.3g}, handles equal "
+          f"{np.array_equal(scanner.handles, k3_scan[1])}")
+    for i in differ[:4].tolist():
+        bits = [int(planes[k][i].view(torch.int32)) for k in range(8)]
+        print(f"    beam {i} (bits {bits}): K5 prim {int(prim5[i])}, K3 (t, prim) "
+              f"({float(k3_out[0, i])}, {int(k3_out[1, i])})")
+    if differ.numel() or not (d <= 1e-5 and np.array_equal(scanner.handles, k3_scan[1])):
+        raise AssertionError("the LBVH scan disagrees with K3's")
+
+    # the denoiser on the card against the CPU, on the same frame
+    cpu = default_denoiser("cpu").denoise(frame.color.cpu(), frame.albedo.cpu(),
+                                          frame.normal.cpu())
+    card = cam.denoiser.denoise(frame.color, frame.albedo, frame.normal).cpu()
+    mag = _quantile(cpu.abs(), 0.99)
+    dd = (card - cpu).abs() / mag
+    p99, dmax = _quantile(dd, 0.99), float(dd.max())
+    print(f"  denoiser card vs CPU on the {C5}x{C5} frame: |d| p99 {p99:.4g}, max "
+          f"{dmax:.4g} of the CPU image's p99 magnitude {mag:.4g} (gate "
+          f"{DENOISE_P99} / {DENOISE_MAX})")
+    if not (p99 <= DENOISE_P99 and dmax <= DENOISE_MAX):
+        raise AssertionError("the denoiser on the card disagrees with the CPU")
+
+    # the reference's quality gates, rendered and denoised on the card
+    goldens = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                           "goldens")
+    for (name, golden, gate, ref_score), make in zip(DENOISE_EVAL,
+                                                     (cornell_eval, strands_eval)):
+        noisy = eval_frame(make, device)
+        clean = np.load(os.path.join(goldens, golden))
+        den = cam.denoiser.denoise(noisy.color, noisy.albedo, noisy.normal)
+        s_noisy = ssim(noisy.color[..., :3].cpu().numpy(), clean)
+        s_den = ssim(den.cpu().numpy(), clean)
+        print(f"  denoiser quality, {name}: SSIM denoised {s_den:.4f} (noisy "
+              f"{s_noisy:.4f}; gate > {gate} and > noisy + 0.15; the reference's "
+              f"documented score {ref_score})")
+        if not (s_den > gate and s_den > s_noisy + 0.15):
+            raise AssertionError(f"the denoiser misses the {name} quality gate")
+    return ({"max_abs_err": k2_err, "ms": k2_ms, "plain_ms": k2_plain_ms,
+             "bound_ms": k2_bound, "bound_by": k2_by, "rays": int(k2_in[1].shape[1])},
+            {"max_abs_err": k3_err, "ms": k3_ms, "plain_ms": k3_plain_ms,
+             "bound_ms": k3_bound, "bound_by": k3_by, "rays": n})
+
+
 def _family(name):
     """Kernel family of a device event, for the device-time breakdown."""
     if "seg_segment_kernel" in name:
@@ -2262,26 +2549,8 @@ def main() -> int:
                                                          BOUNCES), 1)
     k2_ms_b, _ = _median_ms(lambda: fused.fused_path(tables, rays5, rng5, env5, BOUNCES,
                                                      chunk))
-    # K2's tests: every segment of the plain replay, each culled at its hit;
-    # and the share of live lanes in the warps (32 rays in pool order) that
-    # run each segment, which a reorder inside the kernel would raise to 1
-    st, r5, tri = fused.init_state(o, d, torch.ones(n5, device=device)), rng5, 0
-    shares, lane_segs, warp_segs = [], 0, 0
-    for s in range(BOUNCES + 1):
-        lanes = (st[fused.ACT] > 0.0).view(-1, 32)
-        runs = lanes.any(1)
-        shares.append(float(lanes[runs].float().mean()) if bool(runs.any()) else 0.0)
-        lane_segs += int(lanes.sum())
-        warp_segs += int(runs.sum())
-        live = torch.nonzero(st[fused.ACT] > 0.0)[:, 0]
-        sub = st[:, live].contiguous()
-        tmin = 0.0 if s == 0 else fused._BOUNCE_TMIN
-        hit = fused._trace_plain(tables[0], sub, tmin)
-        tri += path_bound(sub, sub.shape[1], tmin, hit[0], 0)[1]
-        new, new_rng, _ = fused._shade_plain(tables[3], env5, sub, r5[live], hit,
-                                             s == 0, s < BOUNCES)
-        st, r5 = st.clone(), r5.clone()
-        st[:, live], r5[live] = new, new_rng
+    tri, shares, lane_segs, warp_segs = k2_tests(tables, chunk, rays5, rng5, env5,
+                                                 BOUNCES)
     # 8 planes in (7 + rng), 12 out
     k2_bound, k2_by = bound(_nbytes(tables[0]) + mat_env + 4 * 20 * n5, tri, 0)
     print(f"  K2 at {n5} rays, {BOUNCES} bounces: kernel median of 5 {k2_ms:.3f} "
@@ -2387,6 +2656,8 @@ def main() -> int:
     k5, k1_c6 = lbvh_phase(device, totals)
     # phases 17-19: BASELINE config 4 (the illumination estimator) and K6
     k6_err, k6, k1_c4 = illumination_phase(device, totals, render_1080p, frame, rays)
+    # phase 20: BASELINE config 5 (camera facade, denoiser, LiDAR) on K2, K3, K5
+    c5_k2, c5_k3 = config5_phase(device, totals, smi.splitlines()[0])
 
     def row(name, source, replaces, err, ms, plain_ms, bnd, by):
         return {"name": name, "route": "cuda",
@@ -2405,10 +2676,11 @@ def main() -> int:
              shape="1080p segment 0", shapes=k1_shapes,
              ptxas=[ptxas.get(f"seg_segment_kernel<{b}>") for b in ("false", "true")]),
         dict(row("fused_path_kernel", "path.cu",
-                 "raytracerfacility_tpu/ops/pallas_fused.py:217", k2_err, k2_ms,
-                 k2_plain_ms, k2_bound, k2_by),
+                 "raytracerfacility_tpu/ops/pallas_fused.py:217",
+                 max(k2_err, c5_k2["max_abs_err"]), k2_ms, k2_plain_ms, k2_bound,
+                 k2_by),
              shape=f"{SMALL}x{SMALL} x {FRAMES} frames, {n5} rays, {BOUNCES} bounces",
-             work=k2_work, live_lane_share=shares,
+             work=k2_work, live_lane_share=shares, config_5=c5_k2,
              ptxas=[ptxas.get(f"fused_path_kernel<{b}>") for b in ("false", "true")]),
         dict(row("fused_sls_kernel", "path.cu",
                  "raytracerfacility_tpu/ops/pallas_fused.py:424", k2s_err, k2s_ms,
@@ -2416,9 +2688,9 @@ def main() -> int:
              shape=f"first SLS {WIDTH}x{HEIGHT} launch, {ns} rays", work=k2s_work,
              ptxas=[ptxas.get(f"fused_sls_kernel<{b}>") for b in ("false", "true")]),
         dict(row("brute_trace_kernel<false>", "brute.cu",
-                 "raytracerfacility_tpu/ops/pallas_brute.py:201", k3c_err,
-                 *k3["closest"][:4]),
-             shape=f"config 7 segment 0, {k3['closest'][4]} rays",
+                 "raytracerfacility_tpu/ops/pallas_brute.py:201",
+                 max(k3c_err, c5_k3["max_abs_err"]), *k3["closest"][:4]),
+             shape=f"config 7 segment 0, {k3['closest'][4]} rays", config_5=c5_k3,
              work=k3["closest"][5], ptxas=ptxas.get("brute_trace_kernel<false, false>")),
         dict(row("brute_trace_kernel<true>", "brute.cu",
                  "raytracerfacility_tpu/ops/pallas_brute.py:201", k3a_err,

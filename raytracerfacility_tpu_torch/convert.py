@@ -1,10 +1,10 @@
 """Move state from the JAX package into the port, as numpy arrays.
 
-The system runs no model; the compiled scene takes the place of weights.
-These functions take the reference's packed path tables, frame buffers and
-light probes (converted to numpy by the caller, so this module never
-imports JAX) and return the port's tensors, so the same scene, frame and
-probes can be fed to both packages.
+The compiled scene takes the place of weights; the one network is the
+denoiser. These functions take the reference's packed path tables, frame
+buffers, light probes and denoiser parameters (converted to numpy by the
+caller, so this module never imports JAX) and return the port's tensors,
+so the same scene, frame, probes and network can be fed to both packages.
 """
 
 from __future__ import annotations
@@ -65,3 +65,62 @@ def probes_from_numpy(probes, device) -> LightProbes:
     get = probes.__getitem__ if isinstance(probes, dict) else (
         lambda k: getattr(probes, k))
     return probes_from_arrays({k: np.asarray(get(k)) for k in PROBE_FIELDS}, device)
+
+
+# flax module paths of the reference's DenoiserUNet, in call order, and
+# the port's module names (models/denoiser.py)
+_DENOISER_MODULES = {"ConvBlock_0": "enc0", "ConvBlock_1": "enc1",
+                     "ConvBlock_2": "enc2", "ConvBlock_3": "dec1",
+                     "ConvBlock_4": "dec0", "Conv_0": "head"}
+
+
+def _denoiser_name(flax_name: str) -> str:
+    """'params/ConvBlock_3/Conv_1/kernel' -> 'dec1.conv1.weight'."""
+    parts = flax_name.split("/")
+    if parts[0] != "params" or parts[1] not in _DENOISER_MODULES:
+        raise ValueError(f"not a DenoiserUNet parameter: {flax_name!r}")
+    names = [_DENOISER_MODULES[parts[1]]]
+    if parts[1] != "Conv_0":
+        if len(parts) != 4 or parts[2] not in ("Conv_0", "Conv_1"):
+            raise ValueError(f"not a DenoiserUNet parameter: {flax_name!r}")
+        names.append("conv" + parts[2][-1])
+    elif len(parts) != 3:
+        raise ValueError(f"not a DenoiserUNet parameter: {flax_name!r}")
+    leaf = {"kernel": "weight", "bias": "bias"}.get(parts[-1])
+    if leaf is None:
+        raise ValueError(f"not a DenoiserUNet parameter: {flax_name!r}")
+    return ".".join(names + [leaf])
+
+
+def denoiser_state_dict_from_flax(flat: dict) -> dict:
+    """The reference's denoiser parameters ('/'-joined flax paths, as in
+    its npz checkpoints; HWIO kernels) as a state dict of the port's
+    ``DenoiserUNet`` (OIHW kernels), float32 on the CPU."""
+    out = {}
+    for name, value in flat.items():
+        t = torch.tensor(np.asarray(value, np.float32))
+        if name.endswith("/kernel"):
+            if t.ndim != 4 or t.shape[:2] != (3, 3):
+                raise ValueError(f"{name}: kernel must be (3, 3, Cin, Cout), "
+                                 f"got {tuple(t.shape)}")
+            t = t.permute(3, 2, 0, 1).contiguous()
+        out[_denoiser_name(name)] = t
+    return out
+
+
+def denoiser_flax_from_state_dict(state: dict) -> dict:
+    """Inverse of :func:`denoiser_state_dict_from_flax`: numpy arrays
+    under flax paths, HWIO kernels."""
+    modules = {v: k for k, v in _DENOISER_MODULES.items()}
+    out = {}
+    for name, value in state.items():
+        parts = name.split(".")
+        path = ["params", modules[parts[0]]]
+        if parts[0] != "head":
+            path.append("Conv_" + parts[1][-1])
+        a = value.detach().to("cpu", torch.float32)
+        if parts[-1] == "weight":
+            a = a.permute(2, 3, 1, 0)
+        out["/".join(path + ["kernel" if parts[-1] == "weight" else "bias"])] = (
+            a.contiguous().numpy())
+    return out

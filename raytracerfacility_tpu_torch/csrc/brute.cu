@@ -86,8 +86,13 @@ struct BruteRows {
 // (tmax <= tmin, DEAD among them) cannot hit and takes no part in the
 // sweep. stats: (kStatPlanes, n) and warp_rows: (ceil(n / 32),), written
 // with kStats. Dynamic shared memory: sweep_smem(s.nchunks).
+// Blocks an SM holds: 8 caps a thread at 64 registers. The sweep's two
+// instantiations (warp_sweep) took the closest hit to 70 registers and 7
+// blocks uncapped, 6% slower on config 7 than the one sweep's 63.
+constexpr int kBruteBlocks = 8;
+
 template <bool kAnyHit, bool kStats>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kBruteBlocks)
 brute_trace_kernel(const float* __restrict__ ox, const float* __restrict__ oy,
                    const float* __restrict__ oz, const float* __restrict__ dx,
                    const float* __restrict__ dy, const float* __restrict__ dz,

@@ -73,18 +73,27 @@ __device__ __forceinline__ Node load_node(const float4* nodes, int k) {
 
 struct WalkRay {
   float ox, oy, oz, dx, dy, dz, ivx, ivy, ivz, tmin, tmax;
+  bool parallel;  // some axis's inverse is held (parallel_slab)
 };
 
 // Whether the ray enters node box b before the best t `bt` (padded);
-// key: the padded entry that orders the children.
+// key: the padded entry that orders the children. kParallel, for a ray
+// parallel to an axis, closes that axis's slab (parallel_slab; the skip
+// walk of any_walk, the reference's, keeps it open).
+template <bool kParallel>
 __device__ __forceinline__ bool enter(const Node& b, const WalkRay& r,
                                       float bt, float& key) {
-  const float t1x = (b.lo.x - r.ox) * r.ivx;
-  const float t2x = (b.lo.w - r.ox) * r.ivx;
-  const float t1y = (b.lo.y - r.oy) * r.ivy;
-  const float t2y = (b.hi.x - r.oy) * r.ivy;
-  const float t1z = (b.lo.z - r.oz) * r.ivz;
-  const float t2z = (b.hi.y - r.oz) * r.ivz;
+  float t1x = (b.lo.x - r.ox) * r.ivx;
+  float t2x = (b.lo.w - r.ox) * r.ivx;
+  float t1y = (b.lo.y - r.oy) * r.ivy;
+  float t2y = (b.hi.x - r.oy) * r.ivy;
+  float t1z = (b.lo.z - r.oz) * r.ivz;
+  float t2z = (b.hi.y - r.oz) * r.ivz;
+  if (kParallel) {
+    parallel_slab(b.lo.x, b.lo.w, r.ox, r.ivx, t1x, t2x);
+    parallel_slab(b.lo.y, b.hi.x, r.oy, r.ivy, t1y, t2y);
+    parallel_slab(b.lo.z, b.hi.y, r.oz, r.ivz, t1z, t2z);
+  }
   const float near = fmaxf(fmaxf(fminf(t1x, t2x), fminf(t1y, t2y)),
                            fminf(t1z, t2z));
   const float far = fminf(fminf(fmaxf(t1x, t2x), fmaxf(t1y, t2y)),
@@ -113,6 +122,7 @@ __device__ __forceinline__ WalkRay load_ray(
   r.ivx = inv_dir(r.dx);
   r.ivy = inv_dir(r.dy);
   r.ivz = inv_dir(r.dz);
+  r.parallel = any_parallel(r.ivx, r.ivy, r.ivz);
   return r;
 }
 
@@ -143,8 +153,9 @@ __device__ __forceinline__ bool row_test(const float4* q, const WalkRay& r,
       float *__restrict__ out, int *__restrict__ prim,                       \
       int *__restrict__ stats, int n, int num_nodes, bool curves
 
-__device__ __forceinline__ void closest_walk(RTF_WALK_ARGS, int i) {
-  const WalkRay r = load_ray(ox, oy, oz, dx, dy, dz, tmin, tmax, i);
+template <bool kParallel>
+__device__ __forceinline__ void closest_walk(RTF_WALK_ARGS, const WalkRay& r,
+                                             int i) {
   float bt = r.tmax, bu = 0.0f, bv = 0.0f;
   int bp = -1, visits = 1, tests = 0, sp = 0;
   int stack_item[kStack];
@@ -157,7 +168,7 @@ __device__ __forceinline__ void closest_walk(RTF_WALK_ARGS, int i) {
   int item = kDone;
   {
     const Node root = load_node(nodes, 0);
-    if (enter(root, r, bt, key)) {
+    if (enter<kParallel>(root, r, bt, key)) {
       const int meta = meta_of(root);
       item = meta != 0 ? -1 - meta : 0;
       if (meta == 0) left = load_node(nodes, 1);
@@ -205,8 +216,8 @@ __device__ __forceinline__ void closest_walk(RTF_WALK_ARGS, int i) {
     const Node left1 = lmeta == 0 ? load_node(nodes, li + 1) : left;
     visits += 2;
     float kl, kr;
-    const bool el = enter(left, r, bt, kl);
-    const bool er = enter(right, r, bt, kr);
+    const bool el = enter<kParallel>(left, r, bt, kl);
+    const bool er = enter<kParallel>(right, r, bt, kr);
     const int rmeta = meta_of(right);
     const int l_item = lmeta != 0 ? -1 - lmeta : li;
     const int r_item = rmeta != 0 ? -1 - rmeta : ri;
@@ -297,8 +308,15 @@ __global__ void __launch_bounds__(kThreads) bvh_trace_kernel(RTF_WALK_ARGS) {
     any_walk(ox, oy, oz, dx, dy, dz, tmin, tmax, nodes, tris, out, prim,
              stats, n, num_nodes, curves, i);
   } else {
-    closest_walk(ox, oy, oz, dx, dy, dz, tmin, tmax, nodes, tris, out, prim,
-                 stats, n, num_nodes, curves, i);
+    // a ray parallel to an axis walks with that slab closed
+    const WalkRay r = load_ray(ox, oy, oz, dx, dy, dz, tmin, tmax, i);
+    if (r.parallel) {
+      closest_walk<true>(ox, oy, oz, dx, dy, dz, tmin, tmax, nodes, tris, out,
+                         prim, stats, n, num_nodes, curves, r, i);
+    } else {
+      closest_walk<false>(ox, oy, oz, dx, dy, dz, tmin, tmax, nodes, tris, out,
+                          prim, stats, n, num_nodes, curves, r, i);
+    }
   }
 }
 

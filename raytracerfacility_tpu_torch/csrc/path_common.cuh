@@ -67,6 +67,32 @@ __device__ __forceinline__ float inv_dir(float d) {
   return 1.0f / (fabsf(d) < eps ? (d < 0.0f ? -eps : eps) : d);
 }
 
+// |inv_dir| of a direction component it holds at 1e-20 (ops/math3d.py
+// HELD_INV), and the slab bound that stands for "every t" (ops/math3d.py
+// PARALLEL_BIG)
+constexpr float kHeldInv = 1.0f / 1e-20f;
+constexpr float kParallelBig = 3.0e38f;
+
+// The slab of an axis the ray runs parallel to (its inverse held): the ray
+// is in it for every t or for none. (b - o) * 1e20 would give a ray that
+// lies on the box's upper face an exit at t = 0, and the box would be
+// culled with the hit on that face (a LiDAR beam along -z through a
+// sphere's pole); the slab is closed: (-big, big) inside or on a face,
+// (big, big), which no window enters, outside.
+__device__ __forceinline__ void parallel_slab(float lo, float hi, float o,
+                                              float iv, float& t1, float& t2) {
+  if (fabsf(iv) >= kHeldInv) {
+    t1 = (lo <= o && o <= hi) ? -kParallelBig : kParallelBig;
+    t2 = kParallelBig;
+  }
+}
+
+// Whether a ray runs parallel to some axis (an inverse held).
+__device__ __forceinline__ bool any_parallel(float ivx, float ivy, float ivz) {
+  return fabsf(ivx) >= kHeldInv || fabsf(ivy) >= kHeldInv ||
+         fabsf(ivz) >= kHeldInv;
+}
+
 // Moller-Trumbore of one ray against a row whose columns 0-8 are v0, e1,
 // e2 (both table layouts). True when det, the barycentrics and tmin
 // accept; t, u, v are set either way.

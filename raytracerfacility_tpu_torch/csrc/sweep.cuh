@@ -40,6 +40,12 @@
 // result is the lexicographic (t, original id) minimum over accepted rows
 // in any visit order, which a row test decides alone.
 //
+// A ray parallel to an axis (its inverse held at 1e20 by inv_dir) lies in
+// that axis's slab for every t or for none; a LiDAR beam on a box's upper
+// face would otherwise leave the box at t = 0 (parallel_slab). A warp that
+// holds such a ray sweeps with those slabs closed; the others with the
+// plain test (warp_sweep).
+//
 // With kStats a lane counts chunk slabs tested (group slabs included),
 // chunks entered, run slabs
 // tested, runs entered and rows tested (an any-hit lane on its own stops
@@ -70,13 +76,15 @@ constexpr int kPairLanes = 16;  // ops/sweep.py PAIR_LANES
 constexpr int kChunkGroup = 32;  // ops/sweep.py CHUNK_GROUP
 struct SweepRay {
   float ox, oy, oz, dx, dy, dz, ivx, ivy, ivz, tmin;
+  bool parallel;  // some axis's inverse is held (parallel_slab)
 };
 
 __device__ __forceinline__ SweepRay make_ray(float ox, float oy, float oz,
                                              float dx, float dy, float dz,
                                              float tmin) {
-  return SweepRay{ox, oy, oz, dx, dy, dz, inv_dir(dx), inv_dir(dy),
-                  inv_dir(dz), tmin};
+  const float ivx = inv_dir(dx), ivy = inv_dir(dy), ivz = inv_dir(dz);
+  return SweepRay{ox, oy, oz, dx, dy, dz, ivx, ivy, ivz, tmin,
+                  any_parallel(ivx, ivy, ivz)};
 }
 
 // Unsigned bits of x that order as the floats do (x not NaN).
@@ -87,16 +95,25 @@ __device__ __forceinline__ uint32_t ord_bits(float x) {
 
 // Padded slab test of box row b (lo xyz, hi xyz, kind, pad: two float4).
 // Returns whether the ray enters before bt; near is the padded entry.
+// kParallel closes the slabs of axes the ray runs parallel to
+// (parallel_slab); warp_sweep takes it only for a warp that holds such a
+// ray, so that the others keep the plain test's instructions.
+template <bool kParallel = true>
 __device__ __forceinline__ bool slab_pad(const float* b, const SweepRay& r,
                                          float bt, float& near) {
   const float4 lo = __ldg(reinterpret_cast<const float4*>(b));
   const float4 hi = __ldg(reinterpret_cast<const float4*>(b) + 1);
-  const float t1x = (lo.x - r.ox) * r.ivx;
-  const float t2x = (lo.w - r.ox) * r.ivx;
-  const float t1y = (lo.y - r.oy) * r.ivy;
-  const float t2y = (hi.x - r.oy) * r.ivy;
-  const float t1z = (lo.z - r.oz) * r.ivz;
-  const float t2z = (hi.y - r.oz) * r.ivz;
+  float t1x = (lo.x - r.ox) * r.ivx;
+  float t2x = (lo.w - r.ox) * r.ivx;
+  float t1y = (lo.y - r.oy) * r.ivy;
+  float t2y = (hi.x - r.oy) * r.ivy;
+  float t1z = (lo.z - r.oz) * r.ivz;
+  float t2z = (hi.y - r.oz) * r.ivz;
+  if (kParallel && r.parallel) {
+    parallel_slab(lo.x, lo.w, r.ox, r.ivx, t1x, t2x);
+    parallel_slab(lo.y, hi.x, r.oy, r.ivy, t1y, t2y);
+    parallel_slab(lo.z, hi.y, r.oz, r.ivz, t1z, t2z);
+  }
   const float n0 = fmaxf(fmaxf(fminf(t1x, t2x), fminf(t1y, t2y)),
                          fminf(t1z, t2z));
   const float far = fminf(fminf(fmaxf(t1x, t2x), fmaxf(t1y, t2y)),
@@ -145,7 +162,7 @@ struct SweepStats {
 // run more than kPairLanes lanes enter is tested one lane a ray, one fewer
 // enter as (ray, row) pairs over the warp. An any-hit lane that accepts
 // leaves (live false). Every lane of the warp must call it.
-template <class Rows, bool kAnyHit, bool kStats>
+template <class Rows, bool kAnyHit, bool kStats, bool kParallel>
 __device__ __forceinline__ void sweep_runs(const Rows& rows, const Boxes& bx,
                                            const SweepRay& ray, int c,
                                            bool in_chunk, bool& live,
@@ -162,7 +179,7 @@ __device__ __forceinline__ void sweep_runs(const Rows& rows, const Boxes& bx,
     // a table whose padding runs have inverted (empty) boxes, which the
     // slab test would take for the whole space, skips them
     bool in_run = in_chunk && (!Rows::kSkipInverted || box[0] <= box[3]) &&
-                  slab_pad(box, ray, best.t, near);
+                  slab_pad<kParallel>(box, ray, best.t, near);
     if (kStats && in_chunk) {
       ++st.v[2];
       st.v[3] += in_run;
@@ -254,22 +271,24 @@ __device__ __forceinline__ void sweep_runs(const Rows& rows, const Boxes& bx,
 // chunks in index order with no keys: each live lane tests each chunk's
 // slab, a ballot skips a chunk no lane enters (an any-hit sweep, whose
 // answer no order changes, saves the keys' slab tests and list).
-template <class Rows, bool kAnyHit, bool kStats, bool kKeyed = true>
-__device__ __forceinline__ void warp_sweep(const Rows& rows, const Boxes& bx,
-                                           const SweepRay& ray, bool live,
-                                           typename Rows::Best& best,
-                                           uint32_t* list, SweepStats& st) {
+template <class Rows, bool kAnyHit, bool kStats, bool kKeyed, bool kParallel>
+__device__ __forceinline__ void warp_sweep_as(const Rows& rows, const Boxes& bx,
+                                              const SweepRay& ray, bool live,
+                                              typename Rows::Best& best,
+                                              uint32_t* list, SweepStats& st) {
   static_assert(kKeyed || !Rows::kChunkGroups, "chunk groups cull the keys");
   if (!kKeyed) {
     for (int c = 0; c < bx.nchunks && __any_sync(kFullMask, live); ++c) {
       float near;
-      const bool in_chunk = live && slab_pad(bx.chunks + c * kBox, ray, best.t, near);
+      const bool in_chunk =
+          live && slab_pad<kParallel>(bx.chunks + c * kBox, ray, best.t, near);
       if (kStats && live) {
         ++st.v[0];
         st.v[1] += in_chunk;
       }
       if (__ballot_sync(kFullMask, in_chunk) == 0u) continue;
-      sweep_runs<Rows, kAnyHit, kStats>(rows, bx, ray, c, in_chunk, live, best, st);
+      sweep_runs<Rows, kAnyHit, kStats, kParallel>(rows, bx, ray, c, in_chunk, live,
+                                                    best, st);
     }
     return;
   }
@@ -286,8 +305,8 @@ __device__ __forceinline__ void warp_sweep(const Rows& rows, const Boxes& bx,
       float near;
       if (Rows::kChunkGroups && (c % kChunkGroup == 0 || c == c0)) {
         // a group no lane enters is passed over, its chunks untested
-        in_group = live && slab_pad(bx.groups + (c / kChunkGroup) * kBox, ray,
-                                    best.t, near);
+        in_group = live && slab_pad<kParallel>(bx.groups + (c / kChunkGroup) * kBox,
+                                               ray, best.t, near);
         if (kStats && live) ++st.v[0];
         if (!__any_sync(kFullMask, in_group)) {
           c = min(c | (kChunkGroup - 1), bx.nchunks - 1);
@@ -295,7 +314,8 @@ __device__ __forceinline__ void warp_sweep(const Rows& rows, const Boxes& bx,
         }
       }
       if (Rows::kChunkGroups && kStats && in_group) ++st.v[0];
-      const bool in = in_group && slab_pad(bx.chunks + c * kBox, ray, best.t, near);
+      const bool in =
+          in_group && slab_pad<kParallel>(bx.chunks + c * kBox, ray, best.t, near);
       if (!__any_sync(kFullMask, in)) continue;
       // + 0: a -0 entry keys as +0, whatever fmaxf returns for signed zeros
       const uint32_t key = in ? ord_bits(fmaxf(near, ray.tmin) + 0.0f) : kNoWord;
@@ -326,15 +346,34 @@ __device__ __forceinline__ void warp_sweep(const Rows& rows, const Boxes& bx,
       __syncwarp();
       const int c = (int)(word & low);
       float near;
-      bool in_chunk = live && slab_pad(bx.chunks + c * kBox, ray, best.t, near);
+      bool in_chunk =
+          live && slab_pad<kParallel>(bx.chunks + c * kBox, ray, best.t, near);
       if (kStats && live) {
         ++st.v[0];
         st.v[1] += in_chunk;
       }
       if (__ballot_sync(kFullMask, in_chunk) == 0u) continue;
-      sweep_runs<Rows, kAnyHit, kStats>(rows, bx, ray, c, in_chunk, live, best, st);
+      sweep_runs<Rows, kAnyHit, kStats, kParallel>(rows, bx, ray, c, in_chunk, live,
+                                                    best, st);
     }
     __syncwarp();
+  }
+}
+
+// The sweep of warp_sweep_as, its slab tests closing parallel slabs only
+// in a warp that holds a ray parallel to an axis (slab_pad). Every lane of
+// the warp must call it.
+template <class Rows, bool kAnyHit, bool kStats, bool kKeyed = true>
+__device__ __forceinline__ void warp_sweep(const Rows& rows, const Boxes& bx,
+                                           const SweepRay& ray, bool live,
+                                           typename Rows::Best& best,
+                                           uint32_t* list, SweepStats& st) {
+  if (__any_sync(kFullMask, ray.parallel)) {
+    warp_sweep_as<Rows, kAnyHit, kStats, kKeyed, true>(rows, bx, ray, live, best,
+                                                       list, st);
+  } else {
+    warp_sweep_as<Rows, kAnyHit, kStats, kKeyed, false>(rows, bx, ray, live, best,
+                                                        list, st);
   }
 }
 

@@ -2,7 +2,7 @@
 
 Port of the camera path of ``raytracerfacility_tpu/models/pathtracer.py``:
 ``RenderConfig``, ``FrameBuffers``, ``init_frame``, the wavefront engine
-(the ``trace_any`` dispatch, ``PathState``,
+(the ``trace_closest`` and ``trace_any`` dispatch, ``PathState``,
 ``init_path_state``, ``_segment``, ``_sorted_state_loop``, ``sort_state_by_index``,
 ``trace_radiance_counted``), ``fused_compatible``,
 ``fused_camera_compatible``, ``_pool_fused_slots`` (split here into
@@ -154,6 +154,20 @@ def init_frame(width: int, height: int, device) -> FrameBuffers:
 # --------------------------------------------------------------------------
 
 
+def trace_closest(scene: CompiledScene, origin, direction, tmin, tmax,
+                  coherent: bool = False) -> TraceResult:
+    """Closest hit of (..., 3) rays in (tmin, tmax) on K3's packed table
+    when the scene has it, else on the LBVH walker K5 (ref
+    pathtracer.py:114-145). ``coherent`` is accepted for the reference's
+    signature and ignored: it only skips the reference's per-trace sort,
+    which the port does not have."""
+    if scene.pallas_tris is not None:
+        return brute.trace_closest(scene.pallas_tris, origin, direction, tmin, tmax)
+    if scene.bvh is not None:
+        return traverse.trace_closest_bvh(scene.bvh, origin, direction, tmin, tmax)
+    raise ValueError("the compiled scene has neither K3's table nor an LBVH")
+
+
 def trace_any(scene: CompiledScene, origin, direction, tmin, tmax) -> torch.Tensor:
     """Occlusion query on K3's packed table when the scene has it, else on
     the LBVH (ref pathtracer.py:147-157). Closest hits take the same
@@ -238,7 +252,8 @@ def _segment(scene: CompiledScene, env: EnvironmentState, config: RenderConfig,
 
     # hit: interpolate and evaluate the material
     accepted = active & res.hit
-    hit = interpolate_hit(scene, res.prim, res.u, res.v, direction, origin, res.t)
+    hit = interpolate_hit(scene, res.prim, res.u, res.v, direction, origin,
+                          res.t, with_tangent=False, with_vertex_attrs=False)
     surf = eval_material(scene, hit)
     new_hc = where(accepted, hc + 1.0, hc)
 

@@ -57,7 +57,7 @@ from raytracerfacility_tpu_torch.ops.brute import (
     check_planes,
 )
 from raytracerfacility_tpu_torch.ops.brute import _trace_plain as _brute_plain
-from raytracerfacility_tpu_torch.ops.math3d import inv_dir
+from raytracerfacility_tpu_torch.ops.math3d import inv_dir, parallel_slabs
 from raytracerfacility_tpu_torch.ops.sweep import CHUNK_GROUP
 
 TRI_CHUNK = 256  # default rows per object chunk, the first culling level
@@ -268,8 +268,10 @@ def _pairs(tables, o, d, tmin, tmax):
     step = max(1, _PAIR_BLOCK // max(n, 1))
     rays, insts = [], []
     for i0 in range(0, n_inst, step):
-        t1 = (lo[None, i0:i0 + step] - o[:, None]) * inv[:, None]
-        t2 = (hi[None, i0:i0 + step] - o[:, None]) * inv[:, None]
+        # axes a ray runs parallel to closed, as in the kernel's slab test
+        b0, b1 = lo[None, i0:i0 + step], hi[None, i0:i0 + step]
+        oi, ii = o[:, None], inv[:, None]
+        t1, t2 = parallel_slabs((b0 - oi) * ii, (b1 - oi) * ii, b0, b1, oi, ii)
         near = torch.minimum(t1, t2).amax(2)
         far = torch.maximum(t1, t2).amin(2)
         enter = (near <= far) & (far > tmin[:, None]) & (near <= tmax[:, None])

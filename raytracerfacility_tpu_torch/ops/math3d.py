@@ -3,10 +3,11 @@ shading steps.
 
 Port of the part of ``raytracerfacility_tpu/ops/math3d.py`` the ported
 paths read: ``TWO_PI``, ``dot``, ``cross``, ``length``, ``normalize``,
-``safe_normalize``, ``reflect``, ``tangent_space`` and
-``sample_hemisphere``, and :func:`inv_dir` (``ops/traverse.py::_safe_inv``)
-and :func:`true_div`. Vectors sit in the trailing axis; three-element
-sums are written out as ``(x + y) + z``.
+``safe_normalize``, ``reflect``, ``tangent_space``,
+``sample_hemisphere`` and ``rotate_about_axis``; and :func:`inv_dir`
+(``ops/traverse.py::_safe_inv``), :func:`parallel_slabs` and
+:func:`true_div`. Vectors sit in the trailing axis; three-element sums
+are written out as ``(x + y) + z``.
 """
 
 from __future__ import annotations
@@ -62,6 +63,27 @@ def inv_dir(d: torch.Tensor) -> torch.Tensor:
     return 1.0 / torch.where(d.abs() < 1e-20, eps, d)
 
 
+# |inv_dir| of a held direction component (csrc/path_common.cuh kHeldInv), and
+# the slab bound that stands for "every t" (kParallelBig)
+HELD_INV = float(1.0 / torch.tensor(1e-20))
+PARALLEL_BIG = 3.0e38
+
+
+def parallel_slabs(t1, t2, lo, hi, o, iv):
+    """Close the slabs of the axes a ray runs parallel to (its inverse
+    held by :func:`inv_dir`): (-big, big) when the ray lies in the slab or
+    on a face of it, (big, big) outside; ``(b - o) * 1e20`` would give a
+    ray on the upper face an exit at t = 0 (csrc/path_common.cuh
+    ``parallel_slab``). All arguments broadcast over a trailing xyz axis;
+    returns the new (t1, t2)."""
+    par = iv.abs() >= HELD_INV
+    if not bool(par.any()):
+        return t1, t2
+    inside = (lo <= o) & (o <= hi)
+    return (torch.where(par, torch.where(inside, -PARALLEL_BIG, PARALLEL_BIG), t1),
+            torch.where(par, PARALLEL_BIG, t2))
+
+
 def true_div(x: torch.Tensor, c: float) -> torch.Tensor:
     """x / c rounded as a division on every device: PyTorch's CUDA
     division by a host scalar multiplies by its rounded reciprocal
@@ -77,6 +99,18 @@ def cos_sin(phi: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     (``cosf``); the rounded float64 value is the same everywhere."""
     p = phi.to(torch.float64)
     return torch.cos(p).to(phi.dtype), torch.sin(p).to(phi.dtype)
+
+
+def rotate_about_axis(v: torch.Tensor, axis: torch.Tensor,
+                      angle: torch.Tensor) -> torch.Tensor:
+    """Rodrigues rotation of ``v`` about unit ``axis`` by ``angle``
+    radians (glm::rotate(vec3, ...)), with its cos and sin from
+    :func:`cos_sin`."""
+    c, s = cos_sin(angle)
+    if c.ndim < v.ndim:
+        c = c[..., None]
+        s = s[..., None]
+    return v * c + cross(axis, v) * s + axis * dot(axis, v)[..., None] * (1.0 - c)
 
 
 def pow64(x: torch.Tensor, e) -> torch.Tensor:

@@ -1,14 +1,13 @@
-"""Hit interpolation and Default-material evaluation for the wavefront
-engine.
+"""Hit interpolation and Default-material evaluation.
 
 Port of ``raytracerfacility_tpu/ops/shading.py``: ``interpolate_hit``
-(with the curve branch), ``eval_material``, ``metallic_f``,
+(with the curve branch and the reference's static ``with_tangent`` /
+``with_vertex_attrs`` switches), ``eval_material``, ``metallic_f``,
 ``brdf_weight`` and ``sample_brdf``, for what the port's scene bake
-admits: Default materials without textures, so the tangent and the
-nearest-vertex color/data fetches are elided (the reference's
-``with_tangent=False``, ``with_vertex_attrs=False``,
-``enable_textures=False``); so are the texcoord and the curve colour,
-which only textures and vertex-colour materials read.
+admits: Default materials without textures. The wavefront engine calls
+``interpolate_hit`` with both switches off (the reference's
+specialization for such scenes), so it gathers no tangent, texcoord,
+colour or data; the LiDAR scan turns both on.
 """
 
 from __future__ import annotations
@@ -22,6 +21,7 @@ from raytracerfacility_tpu_torch.ops.curve import (
     refine_swept_hit,
 )
 from raytracerfacility_tpu_torch.ops.math3d import (
+    cross,
     dot,
     reflect,
     safe_normalize,
@@ -31,11 +31,17 @@ from raytracerfacility_tpu_torch.ops.math3d import (
 
 @dataclasses.dataclass(frozen=True)
 class HitInfo:
-    """Ref HitInfo.hpp:4-11, the fields Default shading reads."""
+    """Ref HitInfo.hpp:4-11 (SoA). The fields an ``interpolate_hit``
+    switch elides are None."""
 
     position: torch.Tensor  # (..., 3)
     normal: torch.Tensor  # (..., 3) unit, flipped toward -ray
     material: torch.Tensor  # (...,) int64 material slot
+    instance: torch.Tensor  # (...,) int64 instance slot
+    tangent: torch.Tensor | None = None  # (..., 3) unit
+    color: torch.Tensor | None = None  # (..., 4) nearest-vertex colour
+    tex_coord: torch.Tensor | None = None  # (..., 2)
+    data: torch.Tensor | None = None  # (..., 4)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,10 +56,12 @@ class SurfaceSample:
 
 
 def _curve_hit(geom, prim, u, ray_direction, origin, t_hit, base):
-    """Position and normal of a hit on a curve row (ref
-    Curves::GetHitInfo, RayDataDefinations.hpp:32-72): the linear
+    """Position, normal and attribute parameter of a hit on a curve row
+    (ref Curves::GetHitInfo, RayDataDefinations.hpp:32-72): the linear
     segment's offset-surface normal, replaced by the Newton refinement
-    onto the parent quadratic/cubic spline where it converges."""
+    onto the parent quadratic/cubic spline where it converges; the
+    attribute parameter is the refined spline parameter mapped back into
+    the row's [u0, u1] range there, else ``u``."""
     x = origin + ray_direction * t_hit[..., None]
     e2 = geom.e2[prim]
     c_normal, c_pos = linear_curve_normal(x, base, geom.e1[prim], e2[..., 0],
@@ -68,40 +76,85 @@ def _curve_hit(geom, prim, u, ray_direction, origin, t_hit, base):
     s0_rng, s1_rng = pdata[..., 2, 0], pdata[..., 2, 1]
     s_seed = s0_rng + u * (s1_rng - s0_rng)
     ord_i = torch.where(higher, order, 2.0).to(torch.int32)
-    _, _, r_pos, r_normal, r_ok = refine_swept_hit(
+    _, s_ref, r_pos, r_normal, r_ok = refine_swept_hit(
         origin, ray_direction, t_hit, s_seed, ctrl, radii, ord_i)
     # the grazing tail keeps the subdivision hit
-    hm = (higher & r_ok)[..., None]
-    return torch.where(hm, r_pos, c_pos), torch.where(hm, r_normal, c_normal)
+    higher = higher & r_ok
+    hm = higher[..., None]
+    span = torch.clamp(s1_rng - s0_rng, min=1e-8)
+    u_attr = torch.where(higher, torch.clamp((s_ref - s0_rng) / span, 0.0, 1.0), u)
+    return (torch.where(hm, r_pos, c_pos), torch.where(hm, r_normal, c_normal),
+            u_attr)
 
 
-def interpolate_hit(scene, prim, u, v, ray_direction, origin, t_hit) -> HitInfo:
+def interpolate_hit(scene, prim, u, v, ray_direction, origin, t_hit,
+                    with_tangent: bool = True,
+                    with_vertex_attrs: bool = True) -> HitInfo:
     """Interpolate the hit record (ref RayDataDefinations.hpp:127-164,
-    364-382): barycentric position and corner normal on triangles, the
-    curve branch on curve rows, then the normal normalized and flipped
-    toward the incoming ray. ``prim`` is clamped into range, so missed
-    rays (prim -1) read row 0 and are masked by the caller."""
+    364-382): barycentric position, corner normal, tangent and texcoord
+    and the nearest-vertex colour and data on triangles, the curve branch
+    on curve rows, then the normal normalized and flipped toward the
+    incoming ray. ``prim`` is clamped into range, so missed rays (prim -1)
+    read row 0 and are masked by the caller.
+
+    ``with_tangent`` and ``with_vertex_attrs`` statically elide the
+    tangent and the texcoord, colour and data fetches (their fields are
+    then None): the reference elides the tangent and the colour and data
+    the same way (ref shading.py:53-110); the port also elides the
+    texcoord, which only textures read."""
     geom = scene.geometry
     prim = torch.clamp(prim.to(torch.int64), 0, geom.num_triangles - 1)
-    w = 1.0 - u - v
+    w = (1.0 - u - v)[..., None]
+    uu, vv = u[..., None], v[..., None]
+
+    def bary(c):
+        return w * c[..., 0, :] + uu * c[..., 1, :] + vv * c[..., 2, :]
+
     base = geom.v0[prim]
-    position = base + u[..., None] * geom.e1[prim] + v[..., None] * geom.e2[prim]
-    n = geom.normal[prim]
-    normal = (w[..., None] * n[..., 0, :] + u[..., None] * n[..., 1, :]
-              + v[..., None] * n[..., 2, :])
+    position = base + uu * geom.e1[prim] + vv * geom.e2[prim]
+    normal = bary(geom.normal[prim])
+    tangent = bary(geom.tangent[prim]) if with_tangent else None
+    tex_coord = color = data = None
+    if with_vertex_attrs:
+        tc = geom.tex_coord[prim]
+        tex_coord = bary(tc)
+        # nearest-vertex colour and data (ref RayDataDefinations.hpp:152-162)
+        z = 1.0 - u - v
+        pick_x = (u > z) & (u > v)
+        pick_y = ~pick_x & (v > z)
+        corner = torch.where(pick_x, 1, torch.where(pick_y, 2, 0))
+        idx = corner[..., None, None].expand(*corner.shape, 1, 4)
+        color = torch.gather(geom.color[prim], -2, idx)[..., 0, :]
+        data = torch.gather(geom.data[prim], -2, idx)[..., 0, :]
     if geom.has_curves:
         is_curve = (geom.kind[prim] == 1)[..., None]
-        c_pos, c_normal = _curve_hit(geom, prim, u, ray_direction, origin,
-                                     t_hit, base)
+        c_pos, c_normal, u_attr = _curve_hit(geom, prim, u, ray_direction,
+                                             origin, t_hit, base)
         position = torch.where(is_curve, c_pos, position)
         normal = torch.where(is_curve, c_normal, normal)
+        ua = u_attr[..., None]
+        if with_tangent:  # cross(normal, normal.yzx) (ref :69-70)
+            swiz = torch.stack([c_normal[..., 1], c_normal[..., 2],
+                                c_normal[..., 0]], dim=-1)
+            tangent = torch.where(is_curve, cross(c_normal, swiz), tangent)
+        if with_vertex_attrs:  # attributes lerped along the segment
+            c = geom.color[prim]
+            color = torch.where(is_curve, (1.0 - ua) * c[..., 0, :] + ua * c[..., 1, :],
+                                color)
+            tex_coord = torch.where(
+                is_curve, (1.0 - ua) * tc[..., 0, :] + ua * tc[..., 1, :], tex_coord)
+            data = torch.where(is_curve, 0.0, data)
 
     normal = safe_normalize(normal)
     flip = (dot(ray_direction, normal) > 0.0)[..., None]
     normal = torch.where(flip, -normal, normal)
-    material = scene.instance_material[geom.instance[prim].to(torch.int64)]
+    if with_tangent:
+        tangent = safe_normalize(tangent)
+    instance = geom.instance[prim].to(torch.int64)
     return HitInfo(position=position, normal=normal,
-                   material=material.to(torch.int64))
+                   material=scene.instance_material[instance].to(torch.int64),
+                   instance=instance, tangent=tangent, color=color,
+                   tex_coord=tex_coord, data=data)
 
 
 def eval_material(scene, hit: HitInfo) -> SurfaceSample:

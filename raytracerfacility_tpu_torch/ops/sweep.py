@@ -44,6 +44,7 @@ from __future__ import annotations
 import torch
 
 from raytracerfacility_tpu_torch.ops import brute
+from raytracerfacility_tpu_torch.ops.math3d import parallel_slabs
 
 STATS = ("chunk slabs tested", "chunks entered", "run slabs tested",
          "runs entered", "rows tested")
@@ -86,14 +87,13 @@ def inv_dir(d):
 
 def slab(box, o, iv, tmin, bt, pad: bool):
     """Slab test of boxes ``box`` (..., 8) against rays ``o``/``iv`` (...,
-    3) with windows ``tmin``/``bt`` (...). Returns (enters, near), near
-    padded when ``pad``."""
-    t1 = [(box[..., a] - o[..., a]) * iv[..., a] for a in range(3)]
-    t2 = [(box[..., a + 3] - o[..., a]) * iv[..., a] for a in range(3)]
-    lo = [torch.minimum(a, b) for a, b in zip(t1, t2)]
-    hi = [torch.maximum(a, b) for a, b in zip(t1, t2)]
-    near = torch.maximum(torch.maximum(lo[0], lo[1]), lo[2])
-    far = torch.minimum(torch.minimum(hi[0], hi[1]), hi[2])
+    3) with windows ``tmin``/``bt`` (...), axes the ray runs parallel to
+    closed (:func:`parallel_slabs`). Returns (enters, near), near padded
+    when ``pad``."""
+    lo, hi = box[..., 0:3], box[..., 3:6]
+    t1, t2 = parallel_slabs((lo - o) * iv, (hi - o) * iv, lo, hi, o, iv)
+    near = torch.minimum(t1, t2).amax(-1)
+    far = torch.maximum(t1, t2).amin(-1)
     if pad:
         near = near - near.abs() * CULL_PAD
     return (near <= far) & (far > tmin) & (near <= bt), near

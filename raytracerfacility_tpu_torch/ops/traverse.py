@@ -44,7 +44,7 @@ from raytracerfacility_tpu_torch.ops.brute import (
 )
 from raytracerfacility_tpu_torch.ops.bvh import BVH, decode_int_column
 from raytracerfacility_tpu_torch.ops.curve import intersect_round_cone
-from raytracerfacility_tpu_torch.ops.math3d import inv_dir
+from raytracerfacility_tpu_torch.ops.math3d import inv_dir, parallel_slabs
 
 MAX_STEPS = 8192  # node visits a ray may take (ref traverse.py:49-51)
 STACK = 64  # csrc/bvh.cu kStack: >= the radix tree's depth (ops/bvh.py)
@@ -145,9 +145,11 @@ def _walk_plain(bvh: BVH, rays, n: int, any_hit: bool, stats: bool = False,
 
 def _enter(row, o, iv, tmin, best):
     """K5's box test of node rows ``row`` (R, 8) against the best t, the
-    entry padded: (entered, key) (``csrc/bvh.cu`` enter)."""
-    t1 = (row[:, 0:3] - o) * iv
-    t2 = (row[:, 3:6] - o) * iv
+    entry padded, the slabs of axes a ray runs parallel to closed (the
+    skip walk's, the reference's, stay open): (entered, key)
+    (``csrc/bvh.cu`` enter)."""
+    lo, hi = row[:, 0:3], row[:, 3:6]
+    t1, t2 = parallel_slabs((lo - o) * iv, (hi - o) * iv, lo, hi, o, iv)
     near = torch.minimum(t1, t2).amax(1)
     far = torch.maximum(t1, t2).amin(1)
     key = torch.maximum(near - near.abs() * CULL_PAD, tmin)

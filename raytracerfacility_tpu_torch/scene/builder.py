@@ -33,6 +33,7 @@ from raytracerfacility_tpu_torch.scene.compiled import (
     CompiledScene,
     GeometryBuffers,
     MaterialTable,
+    handle_words,
 )
 
 
@@ -56,6 +57,7 @@ def _geometry_object_bake(geom) -> dict | None:
         "e1": p[c1] - v0,
         "e2": p[c2] - v0,
         "normal": corners(mesh.normals),
+        "tangent": corners(mesh.tangents),
         "tex_coord": corners(mesh.tex_coords),
         "color": corners(mesh.colors),
         "data": corners(mesh.data),
@@ -66,8 +68,9 @@ def _geometry_object_bake(geom) -> dict | None:
 def _transform_part_batched(obj: dict, matrices: np.ndarray) -> dict:
     """Apply one or many instance transforms to an object-space bake as ONE
     batched einsum (ref CopyVertices*Kernel RayTracer.cu:1148-1192):
-    positions rotate+translate, edges and corner normals rotate (plain
-    matrix like the reference, RayDataDefinations.hpp:375); the other
+    positions rotate+translate, edges and corner normals and tangents
+    rotate (plain matrix like the reference, RayDataDefinations.hpp:375);
+    the other
     corner attributes repeat per instance."""
     m = np.asarray(matrices, np.float32)
     if m.ndim == 2:
@@ -88,6 +91,7 @@ def _transform_part_batched(obj: dict, matrices: np.ndarray) -> dict:
         "e1": rot_pts(obj["e1"]).astype(np.float32),
         "e2": rot_pts(obj["e2"]).astype(np.float32),
         "normal": rot_corners(obj["normal"]).astype(np.float32),
+        "tangent": rot_corners(obj["tangent"]).astype(np.float32),
         **{k: np.tile(obj[k], (m.shape[0],) + (1,) * (obj[k].ndim - 1))
            for k in ("tex_coord", "color", "data", "kind")},
     }
@@ -139,6 +143,7 @@ def _bake_analytic_curves(geom, transform: np.ndarray, mode: str):
         "e1": (p1 - p0).astype(np.float32),
         "e2": e2,
         "normal": ctrl_w[:, 0:3, :].astype(np.float32),  # c0, c1, c2
+        "tangent": np.zeros((n, 3, 3), np.float32),
         "tex_coord": tex,
         "color": color,
         "data": data,
@@ -227,6 +232,7 @@ def build_compiled_scene(scene, device, build_bvh: bool = False,
 
     device = torch.device(device)
     inst_material: list[int] = []
+    inst_handles: list[tuple[int, int]] = []
     material_slot: dict[int, int] = {}
     mat_list = []
 
@@ -262,6 +268,7 @@ def build_compiled_scene(scene, device, build_bvh: bool = False,
                 "(skinning) is not ported")
         slot = len(inst_material)
         inst_material.append(material_index(inst.material_key))
+        inst_handles.append(handle_words(inst.entity_handle))
         groups.setdefault((inst.geometry_key, geom.version),
                           (geom, []))[1].append((inst, slot))
 
@@ -302,6 +309,7 @@ def build_compiled_scene(scene, device, build_bvh: bool = False,
             "e1": np.zeros((1, 3), np.float32),
             "e2": np.zeros((1, 3), np.float32),
             "normal": np.zeros((1, 3, 3), np.float32),
+            "tangent": np.zeros((1, 3, 3), np.float32),
             "tex_coord": np.zeros((1, 3, 2), np.float32),
             "color": np.ones((1, 3, 4), np.float32),
             "data": np.zeros((1, 3, 4), np.float32),
@@ -310,6 +318,7 @@ def build_compiled_scene(scene, device, build_bvh: bool = False,
         })
         if not inst_material:
             inst_material.append(0)
+            inst_handles.append((0, 0))
         if not mat_list:
             mat_list.append(dict(albedo=np.ones(3, np.float32),
                                  roughness=1.0, metallic=0.3, emission=0.0))
@@ -342,6 +351,8 @@ def build_compiled_scene(scene, device, build_bvh: bool = False,
         materials=materials,
         instance_material=torch.tensor(inst_material, dtype=torch.int32,
                                        device=device),
+        instance_handle=torch.tensor(inst_handles, dtype=torch.int64,
+                                     device=device).reshape(-1, 2),
         num_tris=int(num_tris),
     )
     if build_bvh:

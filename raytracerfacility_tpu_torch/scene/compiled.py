@@ -2,9 +2,9 @@
 
 Port of ``raytracerfacility_tpu/scene/compiled.py``, cut to the fields the
 ported paths read: the world-space primitive soup (``v0``, ``e1``, ``e2``,
-per-corner ``normal``, ``tex_coord``, ``color`` and ``data``,
+per-corner ``normal``, ``tangent``, ``tex_coord``, ``color`` and ``data``,
 ``instance``, ``kind``), the material table, the per-instance material
-slots, the wavefront engine's packed trace table (``pallas_tris``), the
+slots and entity handles, the wavefront engine's packed trace table (``pallas_tris``), the
 path engines' packed trace+shade tables (``fused``, ``fused_chunk``) and
 the LBVH (``bvh``), which takes their place when the scene is built with
 ``build_bvh=True``. All
@@ -35,6 +35,7 @@ class GeometryBuffers:
     e1: torch.Tensor  # (T, 3)
     e2: torch.Tensor  # (T, 3)
     normal: torch.Tensor  # (T, 3, 3) per-corner world normals (unnormalized)
+    tangent: torch.Tensor  # (T, 3, 3) per-corner world tangents (0 on curves)
     tex_coord: torch.Tensor  # (T, 3, 2)
     color: torch.Tensor  # (T, 3, 4) per-corner vertex colours
     data: torch.Tensor  # (T, 3, 4) aux channel
@@ -62,6 +63,9 @@ class CompiledScene:
     geometry: GeometryBuffers
     materials: MaterialTable
     instance_material: torch.Tensor  # (I,) int32 material slot per instance
+    # (I, 2) int64: the (lo, hi) 32-bit words of each instance's 64-bit
+    # entity handle (the reference keeps them as uint32, which torch lacks)
+    instance_handle: torch.Tensor
     # (table (N, 12), sub_aabbs (N/32, 8), chunk_aabbs (>=8, 8)) from
     # ops/brute.py::pack_tri_table, K3's table; the reference's name.
     # Packed unless the scene is built with build_bvh=True
@@ -82,3 +86,8 @@ class CompiledScene:
     @property
     def device(self) -> torch.device:
         return self.geometry.v0.device
+
+
+def handle_words(handle: int) -> tuple[int, int]:
+    """The (lo, hi) 32-bit words of a 64-bit entity handle."""
+    return handle & 0xFFFFFFFF, (handle >> 32) & 0xFFFFFFFF

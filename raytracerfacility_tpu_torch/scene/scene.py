@@ -159,6 +159,11 @@ class RayTracerScene:
             self._dirty = True
         return inst
 
+    @property
+    def dirty(self) -> bool:
+        """True when an upsert changed the store since the last build."""
+        return self._dirty
+
     # ----------------------------------------------------------------- build
     def build(self, device, build_bvh: bool = False, leaf_size: int = 4):
         """Compile to a CompiledScene on ``device``, rebuilding only when

@@ -4,7 +4,9 @@ Port of ``__graft_entry__._bench_scene`` (``__graft_entry__.py:8-70``),
 which the port cannot import: the reference's entry module pulls in JAX;
 of the scenes and cameras of ``bench.py::run_config6`` and
 ``run_config7``; of the illumination workload of ``bench.py::run_config4``;
-and of the instanced forest of ``scripts/bench_instanced.py``.
+of the instanced forest of ``scripts/bench_instanced.py``; and of the
+denoiser's held-out eval scenes of ``tests/test_denoiser_quality.py``
+(which the port cannot import either: the reference's tests pull in JAX).
 """
 
 from __future__ import annotations
@@ -30,10 +32,9 @@ from raytracerfacility_tpu_torch.scene import (
 )
 
 
-def bench_scene(width: int, height: int, fov: float = 70.0):
-    """A Cornell-style box with a glossy metallic sphere and a 6x6
-    INSTANCED cube grid, about 2.8k triangles (BASELINE.md config 2).
-    Returns (scene store, CameraProperties, EnvironmentProperties)."""
+def _cornell_box() -> RayTracerScene:
+    """A scene store holding the 2 x 2 Cornell box (red left, green right
+    walls), handles 1-5."""
     scene = RayTracerScene()
     handle = 1
     for mesh, transform, color in make_cornell_box(2.0):
@@ -46,7 +47,14 @@ def bench_scene(width: int, height: int, fov: float = 70.0):
         scene.upsert_instance(handle + 200, version=0, geometry=handle,
                               material=handle + 100, transform=transform)
         handle += 1
+    return scene
 
+
+def bench_scene(width: int, height: int, fov: float = 70.0):
+    """A Cornell-style box with a glossy metallic sphere and a 6x6
+    INSTANCED cube grid, about 2.8k triangles (BASELINE.md config 2).
+    Returns (scene store, CameraProperties, EnvironmentProperties)."""
+    scene = _cornell_box()
     sphere = make_sphere(0.35, rings=24, sectors=48)
     t = np.eye(4, dtype=np.float32)
     t[:3, 3] = (-0.4, 0.35, 0.2)
@@ -93,6 +101,37 @@ def strands_scene(width: int, height: int, n_strands: int = 800, seed: int = 7):
     cam.look_at_target((0.0, 0.9, 2.4), (0.0, 0.55, 0.0))
     return (build_strands_scene(n_strands=n_strands, seed=seed), cam,
             EnvironmentProperties())
+
+
+def cornell_eval(size: int = 96):
+    """The denoiser's held-out Cornell gate scene: the Cornell box with a
+    glossy 0.6 cube (``tests/test_smoke.py:18-44``, ``build_test_scene``)
+    seen from the pose of ``tests/test_denoiser_quality.py:48-55``, which
+    ``tests/goldens/denoiser_clean_96.npy`` was rendered from. Returns
+    (scene store, CameraProperties, EnvironmentProperties)."""
+    scene = _cornell_box()
+    t = np.eye(4, dtype=np.float32)
+    t[:3, 3] = (0.0, 0.3, 0.0)
+    scene.upsert_geometry(50, version=0, mesh=make_cube(0.6))
+    scene.upsert_material(
+        51, version=0,
+        properties=MaterialProperties(albedo_color=(0.8, 0.7, 0.2),
+                                      roughness=0.4, metallic=0.6),
+    )
+    scene.upsert_instance(52, version=0, geometry=50, material=51, transform=t)
+    cam = CameraProperties(fov=75.0, size=(size, size))
+    cam.look_at_target((-1.3, 1.7, 1.9), (0.2, 0.6, 0.0))
+    return scene, cam, EnvironmentProperties()
+
+
+def strands_eval(size: int = 96):
+    """The denoiser's held-out strands gate scene: 600 cubic strands
+    (seed 11) seen from the pose of ``tests/test_denoiser_quality.py:58-62``
+    (golden ``tests/goldens/denoiser_clean_strands_96.npy``). Returns
+    (scene store, CameraProperties, EnvironmentProperties)."""
+    cam = CameraProperties(fov=55.0, size=(size, size))
+    cam.look_at_target((-1.2, 1.1, 1.8), (0.0, 0.5, 0.0))
+    return build_strands_scene(n_strands=600, seed=11), cam, EnvironmentProperties()
 
 
 def canopy_scene(width: int, height: int):

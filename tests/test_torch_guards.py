@@ -1,5 +1,6 @@
-"""Guards of the PyTorch port: it never imports JAX, a CUDA request never
-runs on the CPU, no wrapper falls back to its plain version off the CPU,
+"""Guards of the PyTorch port: it never imports JAX (the camera facade,
+the denoiser and the LiDAR scanner included), a CUDA request never runs
+on the CPU, no wrapper falls back to its plain version off the CPU,
 and renders outside the ported envelope raise NotImplementedError."""
 
 from __future__ import annotations
@@ -72,6 +73,16 @@ est = TriangleIlluminationEstimator()
 est.prepare_light_probe_group(items, "cpu")
 est.sample_light_probe_group(scene.build("cpu"), env.state("cpu"), config, seed=1)
 assert est.total_flux.sum() > 0
+from raytracerfacility_tpu_torch.models.denoiser import default_denoiser
+from raytracerfacility_tpu_torch.models.lidar import PointCloudScanner
+from raytracerfacility_tpu_torch.models.renderer import RayProperties, RayTracerCamera
+scene, cam, env = bench_scene(8, 8)
+facade = RayTracerCamera(scene, camera=cam, device="cpu")
+img = facade.render(env, RayProperties(bounces=2))
+assert facade.denoiser.params is not None and img.shape == (8, 8, 4)
+assert PointCloudScanner(size=(0.5, 0.5), distance=(0.1, 0.1)).scan(
+    scene.build("cpu"), position=(0.0, 1.0, 2.5)) > 0
+assert default_denoiser("cpu").denoise(*(torch.rand(8, 8, 3),) * 3).shape == (8, 8, 3)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "raytracerfacility_tpu"))
 print("LOADED", bad)
@@ -96,6 +107,18 @@ def test_cuda_request_raises_without_a_gpu():
         cam.state("cuda")
     with pytest.raises((RuntimeError, AssertionError)):
         pt.init_frame(8, 8, "cuda")
+    from raytracerfacility_tpu_torch.models.denoiser import Denoiser, default_denoiser
+    from raytracerfacility_tpu_torch.models.lidar import PointCloudScanner
+    from raytracerfacility_tpu_torch.models.renderer import RayTracerCamera
+
+    with pytest.raises((RuntimeError, AssertionError)):
+        RayTracerCamera(scene, camera=cam)
+    with pytest.raises((RuntimeError, AssertionError)):
+        default_denoiser()
+    with pytest.raises((RuntimeError, AssertionError)):
+        Denoiser().load_state_dict(default_denoiser("cpu").params)
+    with pytest.raises((RuntimeError, AssertionError)):
+        PointCloudScanner().scan(scene.build("cuda"))
 
 
 def test_wrappers_do_not_fall_back_off_the_cpu():
@@ -272,6 +295,13 @@ def test_package_data_ships_kernel_sources():
     for name in needed:
         assert (csrc / name).is_file()
         assert any(fnmatch.fnmatch(f"csrc/{name}", pat) for pat in patterns), name
+    # and the denoiser checkpoint models/denoiser.py loads
+    from raytracerfacility_tpu_torch.models import denoiser
+
+    package = pathlib.Path(kernels.__file__).parent
+    weights = pathlib.Path(denoiser.WEIGHTS).relative_to(package).as_posix()
+    assert (package / weights).is_file()
+    assert any(fnmatch.fnmatch(weights, pat) for pat in patterns), weights
 
 
 def test_library_path_hashes_every_header(monkeypatch, tmp_path):

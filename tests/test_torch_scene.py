@@ -36,13 +36,15 @@ def test_geometry_bake_matches(both):
     ref, port = both
     assert port.num_tris == ref.num_tris == 2746
     g, rg = port.geometry, ref.geometry
-    for name in ("v0", "e1", "e2", "normal"):
+    for name in ("v0", "e1", "e2", "normal", "tangent"):
         np.testing.assert_allclose(getattr(g, name).numpy(),
                                    np.asarray(getattr(rg, name)),
                                    rtol=0, atol=1e-6, err_msg=name)
     np.testing.assert_array_equal(g.instance.numpy(), np.asarray(rg.instance))
     np.testing.assert_array_equal(port.instance_material.numpy(),
                                   np.asarray(ref.instance_material))
+    np.testing.assert_array_equal(port.instance_handle.numpy(),
+                                  np.asarray(ref.instance_handle).astype(np.int64))
     np.testing.assert_array_equal(port.materials.albedo.numpy(),
                                   np.asarray(ref.materials.albedo))
 

@@ -164,6 +164,37 @@ def test_junction_rays_need_the_cull_pad(order):
     assert torch.equal(got[True], want)
 
 
+# BASELINE config 5's LiDAR beam 75175 of 250,000 (chip_smoke.py phase
+# 20): parallel to the y and x axes, at the height of the sphere's pole,
+# whose run box's upper y face it lies on; and a beam beside it
+PARALLEL_BEAMS = [[-0.4, 0.7, 2.5, 0.0, 0.0, -1.0, 1e-3, 1e20],
+                  [-0.4, 0.65, 2.5, 0.0, 0.0, -1.0, 1e-3, 1e20]]
+
+
+@pytest.mark.parametrize("order", ["index", "warp"])
+def test_parallel_beam_on_a_box_face_keeps_its_hit(order, monkeypatch):
+    """An axis the ray runs parallel to gets a closed slab: with the
+    held inverse alone, (hi - o) * 1e20 = 0 ends the beam's stay in the
+    pole's run box at t = 0 and the sweep takes the back wall behind the
+    sphere; closed, it takes brute force's hit on the pole, bit for bit."""
+    scene, _, _ = bench_scene(8, 8)
+    tables = scene.build("cpu").pallas_tris
+    rays = torch.tensor(PARALLEL_BEAMS, dtype=torch.float32)
+    want = brute._trace_plain(tables[0], rays.T.contiguous(), rays.shape[0])
+
+    def run():
+        rec, _, _ = sweep.sweep(*tables, brute.TRI_CHUNK, rays[:, 0:3], rays[:, 3:6],
+                                rays[:, 6], rays[:, 7], rays[:, 7] > rays[:, 6], "k3",
+                                order=order)
+        return torch.stack([rec[k] for k in ("t", "id", "u", "v")])
+
+    assert torch.equal(run(), want)
+    monkeypatch.setattr(sweep, "parallel_slabs", lambda t1, t2, *_: (t1, t2))
+    open_face = run()
+    assert float(open_face[0, 0]) > float(want[0, 0]) + 1.0  # the back wall
+    assert torch.equal(open_face[:, 1], want[:, 1])
+
+
 def test_wrapper_stats_on_the_cpu_are_the_emulation(bench, strands):
     compiled, env, segments = bench
     st, n, _ = segments[1]

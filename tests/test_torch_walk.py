@@ -17,7 +17,11 @@ plain replays, against the plain versions and the JAX package on the CPU.
   ``trace_any_bvh``'s. On six recorded BASELINE config-7 rays the
   reference's ``trace_closest_bvh`` and its transcription ``_walk_plain``
   (unpadded best-t cull) miss brute force's nearest curve segment; the
-  ordered walk, whose cull is padded, takes it.
+  ordered walk, whose cull is padded, takes it. On two LiDAR beams of
+  BASELINE config 5 that run parallel to two axes and lie in a node box's
+  face plane, the reference's walk leaves the box at t = 0 and takes the
+  surface behind; the ordered walk closes such slabs and takes brute
+  force's hit.
 """
 
 from __future__ import annotations
@@ -37,11 +41,12 @@ from raytracerfacility_tpu_torch.ops.bvh import build_bvh
 from raytracerfacility_tpu_torch.ops.bvh import morton_codes
 from raytracerfacility_tpu_torch.scene import builder
 from raytracerfacility_tpu_torch.scene.procedural import build_canopy_scene
-from raytracerfacility_tpu_torch.scenes import strands_scene
+from raytracerfacility_tpu_torch.scenes import bench_scene, strands_scene
 from tests import torch_parity  # noqa: F401  (one torch thread per worker)
 from tests.test_instanced import _oracle, _rays, _scene
 from tests.test_torch_bvh import _soup
 from tests.test_torch_instanced import _canopy_rays
+from tests.test_torch_sweep import PARALLEL_BEAMS
 from tests.torch_parity import unfused
 
 
@@ -246,4 +251,29 @@ def test_k5_ordered_walk_takes_brute_force_hit_where_skip_walk_misses():
     got = unfused(lambda b, o, d, lo, hi: ref_closest(b, None, o, d, lo, hi),
                   ref, r[0:3].T, r[3:6].T, r[6], r[7])
     assert np.asarray(got.prim).tolist() == [p - 1 for p in SKIP_MISS_PRIMS]
+    np.testing.assert_array_equal(np.asarray(got.t), out_s[0].numpy())
+
+
+def test_k5_ordered_walk_closes_the_slabs_of_parallel_beams():
+    """Beams along -z at the sphere's pole height (and beside it) on the
+    bench scene: each lies in a node box's face plane, where the held
+    inverse's (b - o) * 1e20 = 0 ends the slab at t = 0. The reference's
+    ``trace_closest_bvh`` and the skip walk take the surface behind; the
+    ordered walk takes brute force's hit."""
+    scene, _, _ = bench_scene(8, 8)
+    bvh = scene.build("cpu", build_bvh=True).bvh
+    rays = torch.tensor(PARALLEL_BEAMS, dtype=torch.float32).T.contiguous()
+    want = brute._trace_plain(scene.build("cpu").pallas_tris[0], rays, rays.shape[1])
+    out, prim, _ = traverse._walk_ordered(bvh, rays, rays.shape[1])
+    assert torch.equal(prim, want[1].to(torch.int32))
+    assert torch.equal(out, want[[0, 2, 3]])
+    out_s, prim_s, _ = traverse._walk_plain(bvh, rays, rays.shape[1], False)
+    assert bool((out_s[0] > want[0] + 0.3).all())
+    ref = RefBVH(nodes=jnp.asarray(bvh.nodes.numpy()), tris=jnp.asarray(bvh.tris.numpy()),
+                 tri_prim=jnp.asarray(bvh.tri_prim.numpy()), leaf_size=bvh.leaf_size,
+                 has_curves=bvh.has_curves)
+    r = jnp.asarray(rays.numpy())
+    got = unfused(lambda b, o, d, lo, hi: ref_closest(b, None, o, d, lo, hi),
+                  ref, r[0:3].T, r[3:6].T, r[6], r[7])
+    np.testing.assert_array_equal(np.asarray(got.prim), prim_s.numpy())
     np.testing.assert_array_equal(np.asarray(got.t), out_s[0].numpy())
