@@ -50,6 +50,16 @@ its kernels:
   LBVH walker (K5) against K3, the denoiser on the card against the CPU,
   and the reference's denoiser quality gates (SSIM against
   ``tests/goldens``) on its held-out Cornell and strands poses.
+- ray-dependent environments: the 1080p bench scene (8 bounces, 2
+  frames) under the Nishita sky and under a seeded 512x512-a-face
+  cubemap on the segmented engine with K1's miss-plane form
+  (``seg_segment_kernel<miss>``) and the miss-radiance kernel
+  (``miss_radiance_kernel``, ``csrc/env.cu``) after every segment, every
+  K1-env launch against its plain version on every ray and every miss
+  launch against ``environment._miss_radiance_plain``, the frames against
+  the wavefront engine on the LBVH (K5 and the miss kernel); config 4
+  under the sky against the walker; config 7's strands under the sky on
+  K3 and the miss kernel.
 
 K2 and K2-SLS must equal their plain versions on all 12 output planes of
 every ray (K2-SLS at least on ``HIT_AGREE`` of them), and their work
@@ -185,6 +195,32 @@ def check_k1(device, width, height, segments):
     return worst
 
 
+def check_k1_path(render):
+    """Every K1 launch of ``render()`` (captured as :func:`capture_k1`
+    records one) against its plain version on every ray. Returns the
+    largest |d| (0)."""
+    from raytracerfacility_tpu_torch.ops import seg
+
+    launches = []
+    real = seg.segment
+
+    def spy(tables, env, st, rng, n, is_first, has_cont, chunk, stats=False,
+            miss=None):
+        launches.append((tables, env.clone(), st[:, :n].clone(), rng[:n].clone(), n,
+                         is_first, has_cont, chunk))
+        return real(tables, env, st, rng, n, is_first, has_cont, chunk, stats, miss)
+
+    seg.segment = spy
+    try:
+        render()
+    finally:
+        seg.segment = real
+    worst = 0.0
+    for i, launch in enumerate(launches):
+        worst = max(worst, check_k1_launch(launch, None, f"launch {i}")[0])
+    return worst
+
+
 def capture_k1(render, launch=0):
     """Run ``render()`` with K1's wrapper recording the inputs of its
     launch number ``launch``: (tables, env, st, rng, n, is_first, has_cont,
@@ -194,11 +230,12 @@ def capture_k1(render, launch=0):
     seen = []
     real = seg.segment
 
-    def spy(tables, env, st, rng, n, is_first, has_cont, chunk, stats=False):
+    def spy(tables, env, st, rng, n, is_first, has_cont, chunk, stats=False,
+            miss=None):
         if len(seen) <= launch:
             seen.append((tables, env.clone(), st[:, :n].clone(), rng[:n].clone(), n,
                          is_first, has_cont, chunk))
-        return real(tables, env, st, rng, n, is_first, has_cont, chunk, stats)
+        return real(tables, env, st, rng, n, is_first, has_cont, chunk, stats, miss)
 
     seg.segment = spy
     try:
@@ -208,12 +245,13 @@ def capture_k1(render, launch=0):
     return seen[launch]
 
 
-def check_k1_launch(launch, rays, what):
+def check_k1_launch(launch, rays, what, miss=False):
     """K1 over a whole captured launch against its plain version on
     ``rays`` (a long tensor of ray indices; None: every ray): every state
     plane, the RNG and the first segment's AOVs must be equal on every
-    checked ray (0 rays differ). Returns (max |d| (0), the plain version's
-    ms (CUDA events), the kernel's (state, rng) after the launch)."""
+    checked ray (0 rays differ); with ``miss``, K1's miss-plane form, and
+    the miss plane too. Returns (max |d| (0), the plain version's ms (CUDA
+    events), the kernel's (state, rng) after the launch)."""
     import torch
 
     from raytracerfacility_tpu_torch.ops import seg
@@ -221,26 +259,34 @@ def check_k1_launch(launch, rays, what):
 
     tables, env, st, rng, n, first, has_cont, chunk = launch
     st_k, rng_k = st.clone(), rng.clone()
-    aov_k = seg.segment(tables, env, st_k, rng_k, n, first, has_cont, chunk)
+    miss_k = torch.empty(n, device=st.device) if miss else None
+    aov_k = seg.segment(tables, env, st_k, rng_k, n, first, has_cont, chunk,
+                        miss=miss_k)
     if rays is None:
         rays = torch.arange(n, device=st.device)
     st_p, rng_p = st[:, rays].contiguous(), rng[rays].contiguous()
+    miss_p = torch.empty(rays.numel(), device=st.device) if miss else None
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    aov_p = seg._segment_plain(tables, env, st_p, rng_p, rays.numel(), first, has_cont)
+    aov_p = seg._segment_plain(tables, env, st_p, rng_p, rays.numel(), first, has_cont,
+                               miss_p)
     end.record()
     end.synchronize()
     a = st_k[:, rays]
     same = (a == st_p).all(0) & (rng_k[rays] == rng_p)
     if first:
         same &= (aov_k[:, rays] == aov_p).all(0)
+    if miss:
+        same &= miss_k[rays] == miss_p
     differ = int((~same).sum())
     err = float((a - st_p).abs().max()) if rays.numel() else 0.0
-    print(f"  K1 {what}: {n} rays in the launch, {rays.numel()} checked against "
-          f"the plain version ({int((st[ACT, rays] > 0).sum())} live): "
-          f"{differ} differ (state planes, RNG{', AOVs' if first else ''}); "
-          f"max |d| {err:.3g}")
+    print(f"  K1{'-env' if miss else ''} {what}: {n} rays in the launch, "
+          f"{rays.numel()} checked against the plain version "
+          f"({int((st[ACT, rays] > 0).sum())} live"
+          f"{f', {int(miss_p.sum())} missed' if miss else ''}): {differ} differ "
+          f"(state planes, RNG{', AOVs' if first else ''}"
+          f"{', miss plane' if miss else ''}); max |d| {err:.3g}")
     if differ:
         raise AssertionError(f"K1 {what}: {differ} rays differ from the plain version")
     return err, start.elapsed_time(end), (st_k, rng_k)
@@ -2119,6 +2165,8 @@ def _family(name):
     """Kernel family of a device event, for the device-time breakdown."""
     if "seg_segment_kernel" in name:
         return "K1 seg_segment_kernel"
+    if "miss_radiance_kernel" in name:
+        return "miss_radiance_kernel"
     if "fused_sls_kernel" in name:
         return "K2-SLS fused_sls_kernel"
     if "fused_path_kernel" in name:
@@ -2238,6 +2286,373 @@ def median_calls(render, reps=5):
     return sorted(walls)[len(walls) // 2], walls, rays
 
 
+# ---------------------------------------------------------------------------
+# Ray-dependent environments (phases 21-24): the bench scene at 1920x1080,
+# 8 bounces, 1 spp, 2 frames under the Nishita sky of
+# tests/test_fused.py:531-574 (sun (0.2, 0.8, 0.3), skylight 1) and under a
+# seeded (6, 512, 512, 4) cubemap of values in [0, 1.5] at skylight 0.9, on
+# the segmented engine with K1's miss-plane form and the miss kernel after
+# every segment, held to the wavefront engine on the same scene built with
+# build_bvh=True (K5 and the miss kernel); BASELINE config 4 under the sky
+# on the presorted segmented engine against the walker; config 7's strands
+# under the sky on the wavefront engine (K3 and the miss kernel)
+ENV_FRAMES = 2
+ENV_SUN = (0.2, 0.8, 0.3)
+ENV_CUBE, ENV_CUBE_SEED = 512, 10
+# the miss kernel against its plain version on every missed ray: the same
+# float32 operations in the same order (-fmad=false), the same float64 pow;
+# expf and sqrtf against torch's CUDA exp and sqrt may round apart:
+# |d| <= MISS_ATOL + MISS_RTOL * |plain| on radiance and light
+MISS_RTOL, MISS_ATOL = 1e-5, 1e-7
+# operations of the sky a missed ray, each add, multiply, division, square
+# root, exponential, pow, min/max, compare and select counted one (336
+# exponentials): per ray, per view sample, per light sample of a view
+# sample; of a cubemap fetch a missed ray
+SKY_OPS = (111, 102, 29)
+CUBE_OPS = 120
+
+
+@contextlib.contextmanager
+def _spied(modules, name, record):
+    """Within the block, every module of ``modules`` calls ``record(*args,
+    **kwargs)`` and then the real function under ``name``."""
+    real = getattr(modules[0], name)
+
+    def spy(*args, **kwargs):
+        record(*args, **kwargs)
+        return real(*args, **kwargs)
+
+    for m in modules:
+        setattr(m, name, spy)
+    try:
+        yield
+    finally:
+        for m in modules:
+            setattr(m, name, real)
+
+
+@contextlib.contextmanager
+def capture_env(k1_launches, miss_calls):
+    """Record the inputs of every K1 launch in its miss-plane form (as
+    :func:`capture_k1`) and of every ``miss_radiance`` call (path-state
+    rows 0-9, radiance and miss plane, cloned) made within the block."""
+    from raytracerfacility_tpu_torch.models import pathtracer
+    from raytracerfacility_tpu_torch.ops import environment, seg
+
+    def k1(tables, env, st, rng, n, is_first, has_cont, chunk, stats=False,
+           miss=None):
+        if miss is not None:
+            k1_launches.append((tables, env.clone(), st[:, :n].clone(),
+                                rng[:n].clone(), n, is_first, has_cont, chunk))
+
+    def hook(state, radiance, miss, env, lighting_type, samples=16,
+             samples_light=8, out=None):
+        n = miss.shape[0]
+        miss_calls.append(dict(state=state[:10, :n].clone(),
+                               radiance=radiance[:, :n].clone(), miss=miss.clone(),
+                               env=env, lighting=lighting_type, samples=samples,
+                               samples_light=samples_light, out=out is not None))
+
+    with _spied([seg], "segment", k1), _spied(
+            [environment, seg, pathtracer], "miss_radiance", hook):
+        yield
+
+
+def miss_bound(call, misses):
+    """(bound ms, what bounds it) of one miss-kernel launch: the miss plane
+    of every lane, the origin, direction, throughput and radiance of each
+    missed ray read once, its radiance (and light) written once, a cubemap
+    fetch's four texels; the sky's operations or the fetch's."""
+    from raytracerfacility_tpu_torch.enums import EnvironmentalLightingType
+
+    n = call["miss"].shape[0]
+    sky = (EnvironmentalLightingType(call["lighting"])
+           == EnvironmentalLightingType.SKYDOME)
+    nbytes = 4 * n + 4 * misses * (12 + 3 + (3 if call["out"] else 0))
+    if sky:
+        per_ray, per_view, per_light = SKY_OPS
+        ops = misses * (per_ray + call["samples"] * (
+            per_view + call["samples_light"] * per_light))
+    else:
+        nbytes += 64 * misses
+        ops = misses * CUBE_OPS
+    t_bytes, t_ops = nbytes / PEAK_BYTES, ops / PEAK_FLOPS
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def check_miss(call, what, timed=False):
+    """The miss kernel on one captured call against its plain version:
+    radiance and light within MISS_ATOL + MISS_RTOL * |plain| on every
+    missed ray, every other ray untouched. Returns (missed rays, max |d|,
+    plain ms, and with ``timed`` the kernel's median ms of 5 and its bound)."""
+    import torch
+
+    from raytracerfacility_tpu_torch.ops import environment
+
+    st, miss = call["state"], call["miss"]
+    n = miss.shape[0]
+    args = (call["env"], call["lighting"], call["samples"], call["samples_light"])
+    rad_k, rad_p = call["radiance"].clone(), call["radiance"].clone()
+    out_k = torch.full((3, n), -1.0, device=st.device) if call["out"] else None
+    out_p = torch.full((3, n), -1.0, device=st.device) if call["out"] else None
+    environment.miss_radiance(st, rad_k, miss, *args, out=out_k)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    environment._miss_radiance_plain(st, rad_p, miss, *args, out_p)
+    end.record()
+    end.synchronize()
+    m = miss > 0
+    misses = int(m.sum())
+    pairs = [(rad_k, rad_p)] + ([(out_k, out_p)] if call["out"] else [])
+    err = 0.0
+    for k, p in pairs:
+        d = (k[:, m] - p[:, m]).abs()
+        if misses and not bool((d <= MISS_ATOL + MISS_RTOL * p[:, m].abs()).all()):
+            raise AssertionError(f"miss kernel {what}: |d| {float(d.max()):.3g} "
+                                 "outside the tolerance")
+        err = max(err, float(d.max()) if misses else 0.0)
+    if not (torch.equal(rad_k[:, ~m], call["radiance"][:, ~m])
+            and (out_k is None or bool((out_k[:, ~m] == -1.0).all()))):
+        raise AssertionError(f"miss kernel {what}: a ray that did not miss changed")
+    line = (f"  miss kernel {what}: {n} lanes, {misses} missed, max |d| {err:.3g} "
+            f"against the plain version ({start.elapsed_time(end):.3f} ms)")
+    if not timed:
+        print(line)
+        return misses, err, start.elapsed_time(end)
+    ms, times = _median_ms(lambda: environment.miss_radiance(st, rad_k, miss, *args,
+                                                             out=out_k))
+    bnd, by = miss_bound(call, misses)
+    print(f"{line}; kernel median of 5 {ms:.4f} ms "
+          f"({', '.join(f'{t:.4f}' for t in times)}), bound {bnd:.4f} ms by {by}")
+    return misses, err, start.elapsed_time(end), ms, bnd, by
+
+
+def env_frame_phase(device, totals, what, compiled, bvh_compiled, cam_s, props,
+                    lighting):
+    """One 1080p path under a ray-dependent environment, counted (K1's
+    miss-plane form and the miss kernel once each a live segment, no
+    other kernel), every K1-env launch against its plain version on every
+    ray (miss plane included), every miss-kernel launch against its plain
+    version, the missed rays a segment, the frame against the wavefront
+    engine on the LBVH (K5 and the miss kernel) at the colour and AOV
+    gates, and Mrays/s (median of 3 warm calls). Returns (K1-env launches,
+    miss calls, max |d| of K1-env, of the miss kernel)."""
+    import torch
+
+    from raytracerfacility_tpu_torch.models.pathtracer import (
+        RenderConfig,
+        init_frame,
+        render_frames_counted,
+    )
+
+    config = RenderConfig(width=WIDTH, height=HEIGHT, bounces=BOUNCES,
+                          lighting_type=lighting)
+    env_s = props.state(device)
+
+    def render(scene=compiled):
+        return render_frames_counted(scene, cam_s, env_s, config,
+                                     init_frame(WIDTH, HEIGHT, device), ENV_FRAMES)
+
+    k1_launches, miss_calls = [], []
+    with capture_env(k1_launches, miss_calls):
+        (frame, rays), launches = counted(
+            render, {"seg_segment_kernel<miss>": None, "miss_radiance_kernel": None},
+            totals)
+    if launches["seg_segment_kernel<miss>"] != launches["miss_radiance_kernel"]:
+        raise AssertionError(f"{what}: not one miss kernel a K1-env launch: {launches}")
+    per_seg = [int((c["miss"] > 0).sum()) for c in miss_calls]
+    print(f"  {what}: {WIDTH}x{HEIGHT} {BOUNCES} bounces {ENV_FRAMES} frames: "
+          f"{int(rays)} live rays, launches {launches}; missed rays a segment "
+          f"{per_seg}")
+    if not (bool(torch.isfinite(frame.color).all()) and sum(per_seg) > 0
+            and float(frame.color[..., :3].std()) > 0.01):
+        raise AssertionError(f"{what}: the frame is not finite and varied, or "
+                             "no ray missed")
+    k1_err = 0.0
+    for i, launch in enumerate(k1_launches):
+        err, _, _ = check_k1_launch(launch, None, f"{what} launch {i}", miss=True)
+        k1_err = max(k1_err, err)
+    k1_launches.clear()
+    miss_err = 0.0
+    for i, call in enumerate(miss_calls):
+        miss_err = max(miss_err, check_miss(call, f"{what} launch {i}")[1])
+    (wave, wave_rays), launches = counted(
+        lambda: render(bvh_compiled),
+        {"bvh_trace_kernel<false>": None, "miss_radiance_kernel": None}, totals)
+    print(f"  {what} on the wavefront engine (LBVH): {int(wave_rays)} live rays, "
+          f"launches {launches}")
+    _check_color(frame.color, wave.color, f"{what} K1-env engine vs wavefront colour")
+    for name in ("albedo", "normal"):
+        q = _check_aov(getattr(frame, name), getattr(wave, name), f"{what} {name}")
+        print(f"  {name}: |d| p99.9 {q:.3g}")
+    if abs(int(rays) - int(wave_rays)) > max(2, 1e-3 * int(wave_rays)):
+        raise AssertionError(f"{what}: the engines disagree on live rays")
+    med, walls, n = median_calls(lambda: render()[1], 3)
+    print(f"  {what} warm, {len(walls)} runs {', '.join(f'{w:.4f}' for w in walls)} "
+          f"s; median {med:.4f} s: {ENV_FRAMES / med:.3f} frames/s, "
+          f"{n / med / 1e6:.3f} Mrays/s ({n} live rays)")
+    return miss_calls, k1_err, miss_err
+
+
+def environment_phase(device, totals, compiled, cam_s, c7, c7_cam_s):
+    """Phases 21-24: the sky and the cubemap at 1080p (K1-env and the miss
+    kernel; K1-env's time and bound on the sky's first launch), config 4
+    under the sky (presorted segmented engine against the walker), config
+    7's strands under the sky (K3 and the miss kernel). Returns the K1-env
+    and miss-kernel rows' numbers."""
+    import numpy as np
+    import torch
+
+    from raytracerfacility_tpu_torch.enums import EnvironmentalLightingType
+    from raytracerfacility_tpu_torch.models.illumination import (
+        TriangleIlluminationEstimator,
+        estimate_illumination_counted,
+    )
+    from raytracerfacility_tpu_torch.models.pathtracer import (
+        RenderConfig,
+        camera_pool,
+        init_frame,
+        render_frames_counted,
+    )
+    from raytracerfacility_tpu_torch.models.renderer import EnvironmentProperties
+    from raytracerfacility_tpu_torch.ops import fused, seg
+    from raytracerfacility_tpu_torch.ops.rng import to_int32
+    from raytracerfacility_tpu_torch.scenes import bench_scene, canopy_illumination
+
+    sky_type = EnvironmentalLightingType.SKYDOME
+    sky = EnvironmentProperties(lighting_type=sky_type, sun_direction=ENV_SUN,
+                                skylight_intensity=1.0)
+    cube = EnvironmentProperties(skylight_intensity=0.9, cubemap=np.random.default_rng(
+        ENV_CUBE_SEED).uniform(0.0, 1.5, (6, ENV_CUBE, ENV_CUBE, 4)).astype(np.float32))
+    bvh_compiled = bench_scene(WIDTH, HEIGHT)[0].build(device, build_bvh=True)
+    out = {"miss": {}}
+
+    print("phase 21: the Nishita sky at 1080p on K1-env and the miss kernel")
+    sky_calls, k1_err, miss_err = env_frame_phase(
+        device, totals, "sky", compiled, bvh_compiled, cam_s, sky, sky_type)
+    # K1-env's time and bound on the sky's segment 0 (the camera rays)
+    config = RenderConfig(width=WIDTH, height=HEIGHT, bounces=BOUNCES,
+                          lighting_type=sky_type)
+    seed = torch.zeros((1, 1, 1), dtype=torch.int64, device=device)
+    o, d, rng, _, env0 = camera_pool(compiled, cam_s, sky.state(device), config, seed)
+    n = o.shape[0]
+    st0 = fused.init_state(o, d, torch.ones(n, device=device))
+    rng0 = to_int32(rng).contiguous()
+    tables, chunk = compiled.fused, compiled.fused_chunk
+    miss0 = torch.empty(n, device=device)
+    launch = (tables, env0, st0, rng0, n, True, True, chunk)
+    _, k1_plain_ms, _ = check_k1_launch(launch, None, "sky segment 0 (timed)", miss=True)
+    k1_ms, k1_times = _median_ms(lambda: seg.segment(
+        tables, env0, st0.clone(), rng0.clone(), n, True, True, chunk, miss=miss0))
+    best_t = fused._trace_plain(tables[0], st0, 0.0)[0]
+    planes = [st0[k] for k in range(fused.OX, fused.DZ + 1)] + [
+        torch.zeros(n, device=device)]
+    tri, _ = culled_tests(tables, chunk, planes, n, best_t)
+    # 14 planes in (13 state + rng), 14 out, 9 AOV planes and the miss plane out
+    k1_bound, k1_by = bound(_nbytes(*tables) + 4 * (14 + 14 + 9 + 1) * n, tri, 0)
+    print(f"  K1-env segment 0 at {n} rays: kernel median of 5 {k1_ms:.3f} "
+          f"({', '.join(f'{t:.3f}' for t in k1_times)}) ms, plain {k1_plain_ms:.3f} "
+          f"ms; {tri} triangle tests after culling, bound {k1_bound:.4f} ms by {k1_by}")
+    out["k1"] = dict(err=k1_err, ms=k1_ms, plain_ms=k1_plain_ms, bound_ms=k1_bound,
+                     bound_by=k1_by, rays=n)
+    # the miss kernel's time on the sky launch with the most missed rays
+    top = max(range(len(sky_calls)), key=lambda i: int((sky_calls[i]["miss"] > 0).sum()))
+    m, _, plain_ms, ms, bnd, by = check_miss(sky_calls[top], f"sky launch {top} (timed)",
+                                             timed=True)
+    out["miss"]["1080p sky"] = dict(launch=top, lanes=sky_calls[top]["miss"].shape[0],
+                                    missed=m, ms=ms, plain_ms=plain_ms, bound_ms=bnd,
+                                    bound_by=by)
+    del sky_calls
+
+    print("phase 22: a seeded 512x512-a-face cubemap at 1080p")
+    cube_calls, err, merr = env_frame_phase(
+        device, totals, "cubemap", compiled, bvh_compiled, cam_s, cube,
+        EnvironmentalLightingType.SCENE)
+    k1_err, miss_err = max(k1_err, err), max(miss_err, merr)
+    top = max(range(len(cube_calls)), key=lambda i: int((cube_calls[i]["miss"] > 0).sum()))
+    m, _, plain_ms, ms, bnd, by = check_miss(cube_calls[top],
+                                             f"cubemap launch {top} (timed)", timed=True)
+    out["miss"]["1080p cubemap"] = dict(launch=top, lanes=cube_calls[top]["miss"].shape[0],
+                                        missed=m, ms=ms, plain_ms=plain_ms,
+                                        bound_ms=bnd, bound_by=by)
+    del cube_calls, bvh_compiled
+
+    print("phase 23: config 4 under the sky (presorted segmented engine, the "
+          "miss hook) against the LBVH walker")
+    scene, items, _, c4_config = canopy_illumination()
+    c4 = scene.build(device)
+    est = TriangleIlluminationEstimator()
+    probes = est.prepare_light_probe_group(items, device)
+    cfg = RenderConfig(bounces=c4_config.bounces, samples=1, lighting_type=sky_type)
+    env_s = sky.state(device)
+    c4_calls = []
+    with capture_env([], c4_calls):
+        (res, rays), launches = counted(
+            lambda: estimate_illumination_counted(c4, env_s, cfg, probes, seed=C4_SEED),
+            {"seg_segment_kernel<miss>": None, "miss_radiance_kernel": None}, totals)
+    print(f"  {probes.num_probes} probes, {2 * probes.num_probes} probe rays: "
+          f"{int(rays)} live rays, launches {launches}; missed rays a segment "
+          f"{[int((c['miss'] > 0).sum()) for c in c4_calls]}")
+    if launches["seg_segment_kernel<miss>"] != launches["miss_radiance_kernel"]:
+        raise AssertionError("config 4 sky: not one miss kernel a K1-env launch")
+    for i, call in enumerate(c4_calls):
+        if i:
+            miss_err = max(miss_err, check_miss(call, f"config 4 launch {i}")[1])
+    m, err, plain_ms, ms, bnd, by = check_miss(c4_calls[0], "config 4 launch 0 (timed)",
+                                               timed=True)
+    miss_err = max(miss_err, err)
+    out["miss"]["config 4 sky segment 0"] = dict(
+        lanes=c4_calls[0]["miss"].shape[0], missed=m, ms=ms, plain_ms=plain_ms,
+        bound_ms=bnd, bound_by=by)
+    del c4_calls
+    c4b = scene.build(device, build_bvh=True)
+    (res_b, rays_b), launches = counted(
+        lambda: estimate_illumination_counted(c4b, env_s, cfg, probes, seed=C4_SEED),
+        {"bvh_trace_kernel<false>": None, "miss_radiance_kernel": None}, totals)
+    d = (res.energy.double() - res_b.energy.double()).abs()
+    dd = (res.direction.double() - res_b.direction.double()).abs()
+    print(f"  on the walker: {int(rays_b)} live rays, launches {launches}; energy "
+          f"|d| p99 {_quantile(d, 0.99):.3g}, direction {_quantile(dd, 0.99):.3g}; "
+          f"mean energy {float(res.energy.mean()):.4f}")
+    if (_quantile(d, 0.99) >= PROBE_Q99 or _quantile(dd, 0.99) >= PROBE_Q99
+            or not float(res.energy.mean()) > 1e-3):
+        raise AssertionError("config 4 sky: the engines disagree or nothing is lit")
+    del c4b, res_b
+
+    def sample():
+        est.sample_light_probe_group(c4, env_s, cfg, seed=C4_SEED)
+        return torch.tensor(2 * probes.num_probes)
+
+    med, walls, nr = median_calls(sample, 3)
+    print(f"  warm sample_light_probe_group, {len(walls)} runs "
+          f"{', '.join(f'{w:.4f}' for w in walls)} s; median {med:.4f} s: "
+          f"{nr / med / 1e6:.3f} Mprobe-rays/s")
+    del c4, est, probes
+
+    print("phase 24: config 7's strands under the sky (wavefront engine, K3 and "
+          "the miss kernel)")
+    c7_config = RenderConfig(width=C7, height=C7, bounces=C7_BOUNCES,
+                             lighting_type=sky_type)
+    c7_calls = []
+    with capture_env([], c7_calls):
+        (frame, rays), launches = counted(
+            lambda: render_frames_counted(c7, c7_cam_s, env_s, c7_config,
+                                          init_frame(C7, C7, device), ENV_FRAMES),
+            {"brute_trace_kernel<false>": None, "miss_radiance_kernel": None}, totals)
+    print(f"  {C7}x{C7} {C7_BOUNCES} bounces {ENV_FRAMES} pooled frames: {int(rays)} "
+          f"live rays, launches {launches}; colour mean "
+          f"{float(frame.color[..., :3].mean()):.4f}")
+    if not (bool(torch.isfinite(frame.color).all())
+            and float(frame.color[..., :3].mean()) > 0.0):
+        raise AssertionError("config 7 sky: the frame is not finite and non-zero")
+    for i, call in enumerate(c7_calls):
+        miss_err = max(miss_err, check_miss(call, f"config 7 launch {i}")[1])
+    out["k1"]["err"] = k1_err
+    out["miss_err"] = miss_err
+    return out
+
+
 def ptxas_summary(log):
     """{kernel: "R registers, S/L bytes spill stores/loads, B bytes static
     smem"} from nvcc's ``-Xptxas -v`` log (the sweep kernels also take 4
@@ -2267,8 +2682,9 @@ def ptxas_summary(log):
         m = re.match(r"_ZN3rtf\d+(\w+?)(I.*)?E", mangled)
         name = m.group(1) if m else mangled
         if m and m.group(2):
-            name += "<" + ", ".join("true" if b == "1" else "false"
-                                    for b in re.findall(r"Lb(\d)E", m.group(2))) + ">"
+            name += "<" + ", ".join(
+                v if t == "i" else ("true" if v == "1" else "false")
+                for t, v in re.findall(r"L([bi])(\d+)E", m.group(2))) + ">"
         names[name] = ", ".join(fields.get(k, "?") for k in ("regs", "spills", "smem"))
     return names
 
@@ -2432,8 +2848,10 @@ def main() -> int:
 
     # phase 8: each kernel against its plain version at its path's shapes
     # (after the counted runs: these launches are not counted)
-    print(f"phase 8: K1 vs plain, {WIDTH}x{HEIGHT}, segments 0 and 1")
-    k1_err = max(k1_err, check_k1(device, WIDTH, HEIGHT, 2))
+    # every launch of the path: a fault of the cull showed only on bounce
+    # rays (1 ray in a few of the 36 launches)
+    print(f"phase 8: K1 vs plain, every launch of the {WIDTH}x{HEIGHT} path")
+    k1_err = max(k1_err, check_k1_path(render_1080p))
     print(f"  K2 vs plain, {SMALL}x{SMALL} x {FRAMES} frames, {BOUNCES} bounces")
     k2_err = max(k2_err, check_k2(device, SMALL, SMALL, FRAMES, BOUNCES))
     print(f"  K2-SLS vs plain, {WIDTH}x{HEIGHT}: the first of the SLS 1080p "
@@ -2658,6 +3076,8 @@ def main() -> int:
     k6_err, k6, k1_c4 = illumination_phase(device, totals, render_1080p, frame, rays)
     # phase 20: BASELINE config 5 (camera facade, denoiser, LiDAR) on K2, K3, K5
     c5_k2, c5_k3 = config5_phase(device, totals, smi.splitlines()[0])
+    # phases 21-24: the cubemap and the sky on K1-env, the miss kernel, K3, K5
+    envr = environment_phase(device, totals, compiled, cam_s, c7, c7_cam_s)
 
     def row(name, source, replaces, err, ms, plain_ms, bnd, by):
         return {"name": name, "route": "cuda",
@@ -2674,7 +3094,26 @@ def main() -> int:
                  max(k1_err, k1_c4[0], k1_c6[0]), k1_ms, k1_plain_ms, k1_bound,
                  k1_by),
              shape="1080p segment 0", shapes=k1_shapes,
-             ptxas=[ptxas.get(f"seg_segment_kernel<{b}>") for b in ("false", "true")]),
+             ptxas=[ptxas.get(f"seg_segment_kernel<{b}, false>")
+                    for b in ("false", "true")]),
+        dict(row("seg_segment_kernel<miss>", "path.cu",
+                 "raytracerfacility_tpu/ops/pallas_seg.py:254 (xla_env=True, :258)",
+                 *(envr["k1"][k] for k in ("err", "ms", "plain_ms", "bound_ms",
+                                           "bound_by"))),
+             shape=f"1080p sky segment 0, {envr['k1']['rays']} rays",
+             ptxas=[ptxas.get(f"seg_segment_kernel<{b}, true>")
+                    for b in ("false", "true")]),
+        dict(row("miss_radiance_kernel", "env.cu",
+                 "none: XLA glue raytracerfacility_tpu/ops/environment.py:143 "
+                 "nishita_sky and raytracerfacility_tpu/ops/texture.py:94 "
+                 "sample_cubemap (pallas_seg.py:1035-1060)", envr["miss_err"],
+                 *(envr["miss"]["1080p sky"][k] for k in ("ms", "plain_ms",
+                                                          "bound_ms", "bound_by"))),
+             shape=(f"1080p sky, the launch with the most missed rays "
+                    f"({envr['miss']['1080p sky']['missed']} of "
+                    f"{envr['miss']['1080p sky']['lanes']} lanes)"),
+             shapes=envr["miss"],
+             ptxas=[ptxas.get(f"miss_radiance_kernel<{m}>") for m in (1, 2)]),
         dict(row("fused_path_kernel", "path.cu",
                  "raytracerfacility_tpu/ops/pallas_fused.py:217",
                  max(k2_err, c5_k2["max_abs_err"]), k2_ms, k2_plain_ms, k2_bound,

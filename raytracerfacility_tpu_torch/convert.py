@@ -2,9 +2,10 @@
 
 The compiled scene takes the place of weights; the one network is the
 denoiser. These functions take the reference's packed path tables, frame
-buffers, light probes and denoiser parameters (converted to numpy by the
-caller, so this module never imports JAX) and return the port's tensors,
-so the same scene, frame, probes and network can be fed to both packages.
+buffers, light probes, environment and denoiser parameters (converted to
+numpy by the caller, so this module never imports JAX) and return the
+port's tensors, so the same scene, frame, probes, environment and network
+can be fed to both packages.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ from raytracerfacility_tpu_torch.models.illumination import (
     probes_from_arrays,
 )
 from raytracerfacility_tpu_torch.models.pathtracer import FrameBuffers
+from raytracerfacility_tpu_torch.ops.environment import AtmosphereState, EnvironmentState
 from raytracerfacility_tpu_torch.ops.fused import _COLS
 
 
@@ -65,6 +67,36 @@ def probes_from_numpy(probes, device) -> LightProbes:
     get = probes.__getitem__ if isinstance(probes, dict) else (
         lambda k: getattr(probes, k))
     return probes_from_arrays({k: np.asarray(get(k)) for k in PROBE_FIELDS}, device)
+
+
+_ENV_FIELDS = {"skylight_intensity": (), "ambient_light_intensity": (),
+               "light_size": (), "gamma": (), "sun_direction": (3,), "color": (3,)}
+_ATMOSPHERE_FIELDS = ("earth_radius", "atmosphere_radius", "hr", "hm", "g")
+
+
+def environment_from_numpy(env, device) -> EnvironmentState:
+    """The reference's ``EnvironmentState`` (any object with its fields as
+    attributes, ``atmosphere`` an object with ``AtmosphereState``'s five,
+    each convertible by ``np.asarray``) as the port's on ``device``: the
+    scalars 0-d and the vectors (3,) float32, the cubemap (6, H, W, 4)
+    float32 or None."""
+    def t(x, shape):
+        a = np.asarray(x, np.float32)
+        if a.shape != shape:
+            raise ValueError(f"environment field of shape {a.shape}, expected {shape}")
+        return torch.tensor(a, device=device)
+
+    fields = {k: t(getattr(env, k), shape) for k, shape in _ENV_FIELDS.items()}
+    cubemap = getattr(env, "cubemap", None)
+    if cubemap is not None:
+        cubemap = np.ascontiguousarray(cubemap, np.float32)
+        if cubemap.ndim != 4 or cubemap.shape[0] != 6 or cubemap.shape[3] != 4:
+            raise ValueError(f"a cubemap must be (6, H, W, 4), got {cubemap.shape}")
+        cubemap = torch.tensor(cubemap, device=device)
+    atm = env.atmosphere
+    atmosphere = AtmosphereState(**{k: t(getattr(atm, k), ())
+                                    for k in _ATMOSPHERE_FIELDS})
+    return EnvironmentState(**fields, cubemap=cubemap, atmosphere=atmosphere)
 
 
 # flax module paths of the reference's DenoiserUNet, in call order, and

@@ -10,7 +10,10 @@
 // what no lane enters, (ray, row) pairs over the warp for runs few lanes
 // enter, and rows read as float4. A dead ray (or a lane
 // past n) takes part in the warp's sweep with nothing entered and leaves
-// its state untouched.
+// its state untouched. Its kMissPlane instantiation is the TPU kernel's
+// xla_env form (pallas_seg.py:258): a miss adds no flat radiance, its
+// segment-0 albedo stays 0 and a miss plane is written, for the miss hook
+// (ops/seg.py, csrc/env.cu) to add a cubemap or the Nishita sky.
 //
 // fused_path_kernel (K2) replaces raytracerfacility_tpu/ops/pallas_fused.py:217
 // _kernel (Scene lighting): every segment of a ray in one thread, the path
@@ -117,11 +120,13 @@ struct ShadowRows {
 // st: (NPLANES, stride) float planes, rng: (stride,) path RNG states, both
 // updated in place for rays [0, n). aov: (9, n) planes, written when `first`.
 // stats: (kStatPlanes, n) and warp_rows: (ceil(n / 32),), written with
-// kStats. Dynamic shared memory: sweep_smem(s.nchunks).
-template <bool kStats>
+// kStats. kMissPlane: the miss-plane form (ref pallas_seg.py:258 xla_env),
+// which adds no flat radiance on a miss and writes miss: (n,), 1 for a live
+// ray that missed, else 0. Dynamic shared memory: sweep_smem(s.nchunks).
+template <bool kStats, bool kMissPlane>
 __global__ void __launch_bounds__(kThreads)
 seg_segment_kernel(float* __restrict__ st, int* __restrict__ rng,
-                   float* __restrict__ aov, Scene s,
+                   float* __restrict__ aov, float* __restrict__ miss, Scene s,
                    const float* __restrict__ env, int n, int stride,
                    int first, int has_cont, int* __restrict__ stats,
                    int* __restrict__ warp_rows) {
@@ -154,6 +159,7 @@ seg_segment_kernel(float* __restrict__ st, int* __restrict__ rng,
   if (i >= n) return;  // after the last warp operation
   if (kStats) store_stats(ss, stats, warp_rows, n, i);
   if (!live) {  // dead ray: state unchanged, no-hit AOVs
+    if (kMissPlane) miss[i] = 0.0f;
     if (first) {
       Aov a;
       no_hit_aov(a, 0.0f, 0.0f, 0.0f);
@@ -170,7 +176,8 @@ seg_segment_kernel(float* __restrict__ st, int* __restrict__ rng,
   p.rng = (uint32_t)rng[i];
 
   Aov a;
-  shade(s, env, p, h, first != 0, has_cont != 0, a);
+  shade<kMissPlane>(s, env, p, h, first != 0, has_cont != 0, a);
+  if (kMissPlane) miss[i] = h.t < kHitMax ? 0.0f : 1.0f;
 
   st[OX * stride + i] = p.ox;
   st[OY * stride + i] = p.oy;
@@ -334,23 +341,25 @@ fused_sls_kernel(const float* __restrict__ rays, const int* __restrict__ rng,
 
 extern "C" {
 
-int rtf_seg_segment(void* st, void* rng, void* aov, const void* tris,
-                    const void* subs, const void* chunks, const void* mats,
-                    const void* env, void* stats, void* warp_rows, int n,
-                    int stride, int nchunks, int chunk, int sub, int first,
-                    int has_cont, void* stream) {
+int rtf_seg_segment(void* st, void* rng, void* aov, void* miss,
+                    const void* tris, const void* subs, const void* chunks,
+                    const void* mats, const void* env, void* stats,
+                    void* warp_rows, int n, int stride, int nchunks, int chunk,
+                    int sub, int first, int has_cont, void* stream) {
   const rtf::Scene s{(const float*)tris, (const float*)subs,
                      (const float*)chunks, (const float*)mats, nchunks, chunk,
                      sub};
   const int blocks = (n + rtf::kThreads - 1) / rtf::kThreads;
   const size_t smem = rtf::sweep_smem(nchunks);
-  auto launch = stats ? rtf::seg_segment_kernel<true>
-                      : rtf::seg_segment_kernel<false>;
+  auto launch = stats ? (miss ? rtf::seg_segment_kernel<true, true>
+                              : rtf::seg_segment_kernel<true, false>)
+                      : (miss ? rtf::seg_segment_kernel<false, true>
+                              : rtf::seg_segment_kernel<false, false>);
   const cudaError_t err = rtf::allow_smem(launch, smem);
   if (err != cudaSuccess) return (int)err;
   launch<<<blocks, rtf::kThreads, smem, (cudaStream_t)stream>>>(
-      (float*)st, (int*)rng, (float*)aov, s, (const float*)env, n, stride,
-      first, has_cont, (int*)stats, (int*)warp_rows);
+      (float*)st, (int*)rng, (float*)aov, (float*)miss, s, (const float*)env,
+      n, stride, first, has_cont, (int*)stats, (int*)warp_rows);
   return (int)cudaGetLastError();
 }
 

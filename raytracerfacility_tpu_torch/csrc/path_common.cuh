@@ -252,18 +252,27 @@ __device__ __forceinline__ void facing_normal(const Path& p, const Hit& h,
 }
 
 // Shade one live ray after its trace (ref pallas_seg.py:506-638). On a
-// miss the flat environment radiance is added and the path ends. On a hit:
-// emission, first-hit AOVs when `first`, and, when `has_cont`, a BRDF cone
-// sample around the reflected direction with the energy weight.
+// miss the path ends: the flat environment radiance is added, or, with
+// kMissPlane (the reference's xla_env form, pallas_seg.py:511-525 and
+// :572-579), nothing is added and the first-hit albedo stays 0, for the
+// caller to add a ray-dependent environment from its miss plane; the
+// origin, direction and throughput are left as they were either way. On a
+// hit: emission, first-hit AOVs when `first`, and, when `has_cont`, a BRDF
+// cone sample around the reflected direction with the energy weight.
+template <bool kMissPlane = false>
 __device__ __forceinline__ void shade(const Scene& s, const float* env,
                                       Path& p, const Hit& h, bool first,
                                       bool has_cont, Aov& aov) {
   if (!(h.t < kHitMax)) {
-    // miss: flat Scene environment (ref Environment.cuh:158-162)
-    p.rr = p.rr + p.tr * env[0];
-    p.rg = p.rg + p.tg * env[1];
-    p.rb = p.rb + p.tb * env[2];
-    if (first) no_hit_aov(aov, env[0], env[1], env[2]);
+    if (kMissPlane) {
+      if (first) no_hit_aov(aov, 0.0f, 0.0f, 0.0f);
+    } else {
+      // flat Scene environment (ref Environment.cuh:158-162)
+      p.rr = p.rr + p.tr * env[0];
+      p.rg = p.rg + p.tg * env[1];
+      p.rb = p.rb + p.tb * env[2];
+      if (first) no_hit_aov(aov, env[0], env[1], env[2]);
+    }
     p.act = 0.0f;
     return;
   }

@@ -40,6 +40,18 @@
 // result is the lexicographic (t, original id) minimum over accepted rows
 // in any visit order, which a row test decides alone.
 //
+// The wrappers pass boxes grown by 2^-18 times each box's largest
+// |coordinate| along each axis it spans (ops/sweep.py grown_boxes; the
+// tables keep the exact ones):
+// a row test rounds too, and accepts a hit on a triangle's edge that lies
+// outside the triangle by a few units in the last place of the
+// coordinates. On a box whose face holds that edge, a ray that leaves the
+// face's plane slowly (a bounce ray from the wall beside it, nearly
+// parallel to it) exits the exact box at t = 0 and was culled: 1 ray in
+// some 1080p segments past the first (4 in the config-2 path's 36
+// launches) took the sky where brute force takes the edge of the wall
+// ahead, outside it by 8e-9 to 1.3e-7.
+//
 // A ray parallel to an axis (its inverse held at 1e20 by inv_dir) lies in
 // that axis's slab for every t or for none; a LiDAR beam on a box's upper
 // face would otherwise leave the box at t = 0 (parallel_slab). A warp that

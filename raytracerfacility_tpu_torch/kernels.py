@@ -32,18 +32,19 @@ import time
 _CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 # library name -> source file
 SOURCES = {"path": "path.cu", "brute": "brute.cu", "inst": "inst.cu",
-           "bvh": "bvh.cu", "perm": "perm.cu"}
+           "bvh": "bvh.cu", "perm": "perm.cu", "env": "env.cu"}
 BUILD_DIR = pathlib.Path(__file__).resolve().parent.parent / "build" / "rtf_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # threads per block of every ray kernel (csrc/path_common.cuh kThreads)
 THREADS = 128
 
-LAUNCHES = {"seg_segment_kernel": 0, "fused_path_kernel": 0,
+LAUNCHES = {"seg_segment_kernel": 0, "seg_segment_kernel<miss>": 0,
+            "fused_path_kernel": 0,
             "fused_sls_kernel": 0, "brute_trace_kernel<false>": 0,
             "brute_trace_kernel<true>": 0, "inst_trace_kernel": 0,
             "bvh_trace_kernel<false>": 0, "bvh_trace_kernel<true>": 0,
-            "block_perm_kernel": 0}
+            "block_perm_kernel": 0, "miss_radiance_kernel": 0}
 
 _libs: dict = {}
 
@@ -112,12 +113,13 @@ def build() -> dict:
 
 
 _ARGTYPES = {
-    "path": {"rtf_seg_segment": (10, 7), "rtf_fused_path": (11, 5),
+    "path": {"rtf_seg_segment": (11, 7), "rtf_fused_path": (11, 5),
              "rtf_fused_sls": (11, 4)},
     "brute": {"rtf_brute_trace": (14, 5)},
     "inst": {"rtf_inst_trace": (21, 5)},
     "bvh": {"rtf_bvh_trace": (13, 4)},
     "perm": {"rtf_block_perm": (7, 3)},
+    "env": {"rtf_miss_radiance": (6, 9)},
 }
 
 

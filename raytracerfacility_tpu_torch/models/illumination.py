@@ -18,12 +18,13 @@ The (probe, face, sample) triple is one flat ray pool with a TEA-hashed RNG
 stream per ray, as in the reference. The pool takes the engine the
 reference picks: with packed path tables the segmented engine with one
 exact reorder before segment 0 (``ops/seg.py``, K1, and K6 under
-``RTF_TPU_SEG_BPERM``) when the scene has 8 chunks or more, else the
-whole-path kernel (K2), and K2-SLS under SingleLightSource lighting;
-without them (curves, ``build_bvh=True``) the wavefront engine (K3 or K5).
-The reference's jit wrapper ``estimate_illumination_jit`` is a plain call
-here. Cubemap environments and Skydome lighting raise
-``NotImplementedError``, as the camera path does.
+``RTF_TPU_SEG_BPERM``) when the scene has 8 chunks or more, or whatever
+its size under a cubemap or the Nishita sky (then with K1's miss-plane
+form and the miss hook, ``miss_radiance_kernel``; ref
+illumination.py:150-205), else the whole-path kernel (K2), and K2-SLS
+under SingleLightSource lighting; without them (curves,
+``build_bvh=True``) the wavefront engine (K3 or K5). The reference's jit
+wrapper ``estimate_illumination_jit`` is a plain call here.
 """
 
 from __future__ import annotations
@@ -38,7 +39,9 @@ from raytracerfacility_tpu_torch.models.pathtracer import (
     RenderConfig,
     _env_vector,
     _refuse,
+    env_hook_args,
     fused_compatible,
+    sorted_env_compatible,
     trace_radiance_counted,
 )
 from raytracerfacility_tpu_torch.ops.environment import EnvironmentState
@@ -142,7 +145,7 @@ def estimate_illumination_counted(
 ):
     """:func:`estimate_illumination` that also returns the live rays traced
     over all segments (an int64 scalar tensor on the scene's device)."""
-    _refuse(env, config)
+    _refuse(config)
     device = scene.device
     p, s = probes.num_probes, config.samples
     # ray pool: (P, 2 faces, S samples)
@@ -171,7 +174,8 @@ def estimate_illumination_counted(
     origin = position + normal * push_normal_distance
 
     n_rays = p * 2 * s
-    if fused_compatible(scene, env, config):
+    env_xla = sorted_env_compatible(scene, env, config)
+    if fused_compatible(scene, env, config) or env_xla:
         sls = config.lighting_type == EnvironmentalLightingType.SINGLE_LIGHT_SOURCE
         env_vec = _env_vector(env)
         env_vec[10] = _PROBE_TMIN
@@ -181,12 +185,14 @@ def estimate_illumination_counted(
         chunk = scene.fused_chunk
         # probe rays are incoherent from segment 0 (uniform hemisphere
         # directions off scattered triangles): scenes of 8 chunks or more
-        # presort them on the segmented engine. The reference decides by
-        # the chunk count alone (its call passes no ray count)
-        if not sls and sorted_dispatch(scene.fused, rays=0, chunk=chunk,
-                                       incoherent=True):
-            out = render_pool_sorted(scene.fused, *pool, bounces=config.bounces,
-                                     chunk=chunk, presort=True)
+        # presort them on the segmented engine, as every pool under a
+        # cubemap or the sky does. The reference decides by the chunk
+        # count alone (its call passes no ray count)
+        if not sls and (env_xla or sorted_dispatch(scene.fused, rays=0,
+                                                   chunk=chunk, incoherent=True)):
+            out = render_pool_sorted(
+                scene.fused, *pool, bounces=config.bounces, chunk=chunk,
+                presort=True, **env_hook_args(env, config))
         else:
             out = render_pool_fused(scene.fused, *pool, bounces=config.bounces,
                                     chunk=chunk, lighting=int(sls))

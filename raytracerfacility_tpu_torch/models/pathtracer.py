@@ -5,24 +5,29 @@ Port of the camera path of ``raytracerfacility_tpu/models/pathtracer.py``:
 (the ``trace_closest`` and ``trace_any`` dispatch, ``PathState``,
 ``init_path_state``, ``_segment``, ``_sorted_state_loop``, ``sort_state_by_index``,
 ``trace_radiance_counted``), ``fused_compatible``,
-``fused_camera_compatible``, ``_pool_fused_slots`` (split here into
-:func:`camera_pool` and the engine dispatch), ``render_samples``,
+``fused_camera_compatible``, ``sorted_env_compatible``,
+``_pool_fused_slots`` (split here into :func:`camera_pool` and the engine
+dispatch), ``render_samples``,
 ``finalize_frame``, ``render_frame``, ``render_frame_counted``,
 ``render_samples_frames_pooled``, ``_frame_pool_group`` and
 ``render_frames_counted``.
 
 Camera pools of scenes with packed path tables run on the path engines:
-Scene lighting on the segmented engine (``ops/seg.py``, kernel K1) for
-pools of 2^19 rays and more and on the whole-path engine (``ops/fused.py``,
-K2) below that; SingleLightSource lighting always on K2-SLS. Every other
-render (curves, spp > 1 without ``samples_in_lanes``, or a scene built
-with ``build_bvh=True``, which has no path tables) runs the wavefront
-engine: trace on K3 (``ops/brute.py``) when the scene has its packed
-table, else on the LBVH walker K5 (``ops/traverse.py``), the reference's
-order (pathtracer.py:114-157); shade in torch ops, one segment at a time.
-Not ported yet, and refused with
-``NotImplementedError``: Skydome lighting, cubemap environments, alpha
-testing, BTF and subsurface.
+Scene lighting with the flat colour on the segmented engine (``ops/seg.py``,
+kernel K1) for pools of 2^19 rays and more and on the whole-path engine
+(``ops/fused.py``, K2) below that; a cubemap under Scene lighting and the
+Nishita sky under Skydome on the segmented engine at every pool size, with
+K1's miss-plane form and the miss hook (``ops/environment.py::
+miss_radiance``, kernel ``miss_radiance_kernel``), since K2 cannot shade
+such a miss (ref pathtracer.py:1012-1033); SingleLightSource lighting
+always on K2-SLS. Every other render (curves, spp > 1 without
+``samples_in_lanes``, or a scene built with ``build_bvh=True``, which has
+no path tables) runs the wavefront engine: trace on K3 (``ops/brute.py``)
+when the scene has its packed table, else on the LBVH walker K5
+(``ops/traverse.py``), the reference's order (pathtracer.py:114-157);
+shade in torch ops, one segment at a time, the cubemap or sky miss through
+the same ``miss_radiance``. Not ported yet, and refused with
+``NotImplementedError``: alpha testing, BTF and subsurface.
 
 The bottom-up energy recurrence of the reference (ref
 RayFunctions.cuh:152-171) is carried top-down as ``radiance += throughput
@@ -51,7 +56,9 @@ from raytracerfacility_tpu_torch.ops.camera import CameraState, generate_camera_
 from raytracerfacility_tpu_torch.ops.environment import (
     EnvironmentState,
     calculate_environmental_light,
+    direction_dependent,
     flat_radiance,
+    miss_radiance,
     sun_cone_intensity,
 )
 from raytracerfacility_tpu_torch.ops.fused import (
@@ -104,8 +111,10 @@ NW = 24
 class RenderConfig:
     """Static render configuration. Mirrors ``RayProperties`` / launch
     statics (ref RayTracer.hpp:153-163): defaults bounces=4, samples=1.
-    The reference's texture, vertex-colour, alpha-segment and atmosphere
-    fields serve features that are not ported and are left out."""
+    ``atmosphere_samples`` and ``atmosphere_samples_light`` are the Nishita
+    sky's view and light samples (ref pathtracer.py:90-91). The
+    reference's texture, vertex-colour and alpha-segment fields serve
+    features that are not ported and are left out."""
 
     width: int = 512
     height: int = 512
@@ -114,6 +123,8 @@ class RenderConfig:
     lighting_type: EnvironmentalLightingType = EnvironmentalLightingType.SCENE
     output_type: OutputType = OutputType.COLOR
     accumulate: bool = True
+    atmosphere_samples: int = 16
+    atmosphere_samples_light: int = 8
     # alpha testing, BTF and subsurface are refused (not ported)
     alpha_test: bool = False
     enable_btf: bool = False
@@ -243,11 +254,21 @@ def _segment(scene: CompiledScene, env: EnvironmentState, config: RenderConfig,
     rng = from_int32(state.rng)
     where = torch.where
 
-    # miss: environment radiance (ref MissFunc, RayFunctions.cuh:260-272)
-    env_light = calculate_environmental_light(origin, direction, env,
-                                              config.lighting_type)
+    # miss: environment radiance (ref MissFunc, RayFunctions.cuh:260-272);
+    # a cubemap or the sky on the missed rays only, the flat colour as is
     miss = active & ~res.hit
-    radiance = where(miss[:, None], radiance + throughput * env_light, radiance)
+    if direction_dependent(env, config.lighting_type):
+        planes = st[RR:RB + 1].clone()
+        light = torch.empty_like(planes)  # set on the missed rays
+        miss_radiance(st, planes, miss.to(torch.float32), env,
+                      config.lighting_type, config.atmosphere_samples,
+                      config.atmosphere_samples_light, out=light)
+        radiance, env_light = planes.T, light.T
+    else:
+        env_light = calculate_environmental_light(origin, direction, env,
+                                                  config.lighting_type)
+        radiance = where(miss[:, None], radiance + throughput * env_light,
+                         radiance)
     first_albedo = where((miss & (hc == 0.0))[:, None], env_light, first_albedo)
 
     # hit: interpolate and evaluate the material
@@ -398,15 +419,42 @@ def fused_camera_compatible(scene: CompiledScene, env: EnvironmentState,
     )
 
 
-def _refuse(env, config) -> None:
+def sorted_env_compatible(scene: CompiledScene, env: EnvironmentState,
+                          config: RenderConfig) -> bool:
+    """True when a pool runs the segmented engine with its miss hook (ref
+    pathtracer.py:887-910): a cubemap under Scene lighting or the Nishita
+    sky under Skydome, which the whole-path kernel cannot shade, over the
+    path tables' feature set, and one sample a pixel or ``samples_in_lanes``."""
+    return (
+        scene.fused is not None
+        and direction_dependent(env, config.lighting_type)
+        and not config.alpha_test
+        and not config.enable_btf
+        and not config.enable_subsurface
+        and (config.samples == 1 or config.samples_in_lanes)
+    )
+
+
+def _on_path_engines(scene, env, config) -> bool:
+    """Whether a camera render takes :func:`_pool_fused_slots`."""
+    return (fused_camera_compatible(scene, env, config)
+            or sorted_env_compatible(scene, env, config))
+
+
+def env_hook_args(env, config) -> dict:
+    """``render_pool_sorted``'s miss-hook arguments for a ray-dependent
+    environment, else none."""
+    if not direction_dependent(env, config.lighting_type):
+        return {}
+    return {"env_state": env, "lighting_type": int(config.lighting_type),
+            "atmos_samples": config.atmosphere_samples,
+            "atmos_samples_light": config.atmosphere_samples_light}
+
+
+def _refuse(config) -> None:
     """Raise NotImplementedError naming what puts a render outside the
     ported engines."""
-    if config.lighting_type == EnvironmentalLightingType.SKYDOME:
-        reason = "Skydome lighting (the Nishita sky)"
-    elif (config.lighting_type == EnvironmentalLightingType.SCENE
-          and env.cubemap is not None):
-        reason = "cubemap environments"
-    elif config.alpha_test:
+    if config.alpha_test:
         reason = "alpha testing"
     elif config.enable_btf:
         reason = "BTF materials"
@@ -458,15 +506,18 @@ def _pool_fused_slots(scene, camera, env, config, seed):
     """Trace the camera pool of :func:`camera_pool` on the path engine its
     lighting and size pick and return the per-slot linear accumulators
     (slot, H, W, 3) plus the live-ray count (ref pathtracer.py:1012-1093):
-    SingleLightSource pools always on K2-SLS, Scene pools on the
-    segmented engine or K2."""
+    SingleLightSource pools always on K2-SLS; a cubemap or the sky on the
+    segmented engine with its miss hook, whatever the pool size (the
+    reference decides this before it looks at the size); flat Scene pools
+    on the segmented engine or K2."""
     pool = camera_pool(scene, camera, env, config, seed)
     chunk = scene.fused_chunk
     sls = config.lighting_type == EnvironmentalLightingType.SINGLE_LIGHT_SOURCE
-    if not sls and sorted_dispatch(scene.fused, rays=pool[0].shape[0],
-                                   chunk=chunk):
+    hook = env_hook_args(env, config)
+    if not sls and (hook or sorted_dispatch(scene.fused, rays=pool[0].shape[0],
+                                            chunk=chunk)):
         out = render_pool_sorted(scene.fused, *pool, bounces=config.bounces,
-                                 chunk=chunk)
+                                 chunk=chunk, **hook)
     else:
         out = render_pool_fused(scene.fused, *pool, bounces=config.bounces,
                                 chunk=chunk, lighting=int(sls))
@@ -503,15 +554,15 @@ def render_samples(
     (ref pathtracer.py:1216-1240). The reference's row-band, sample-count
     and stream arguments serve its multi-device split, which is not
     ported."""
-    _refuse(env, config)
+    _refuse(config)
     # ref pathtracer.py:1104-1105 and :1177: base seed frame_id +
     # 0x9E3779B1 * stream (stream 0 here), plus 0x85EBCA6B per sample
     s_idx = torch.arange(config.samples, dtype=torch.int64,
                          device=scene.device)[:, None, None]
     seed = (frame_id + 0x85EBCA6B * s_idx) & _MASK32
     inv_n = 1.0 / config.samples
-    if fused_camera_compatible(scene, env, config) or config.samples_in_lanes:
-        pool = (_pool_fused_slots if fused_camera_compatible(scene, env, config)
+    if _on_path_engines(scene, env, config) or config.samples_in_lanes:
+        pool = (_pool_fused_slots if _on_path_engines(scene, env, config)
                 else _pool_wavefront_slots)
         *slots, rays = pool(scene, camera, env, config, seed)
         return tuple(torch.sum(a, dim=0) * inv_n for a in slots) + (rays,)
@@ -603,11 +654,11 @@ def render_samples_frames_pooled(scene, camera, env, config, frame_id: int,
     separate ``render_samples(frame_id + f)`` call."""
     if config.samples != 1:
         raise ValueError("frame pooling requires samples == 1")
-    _refuse(env, config)
+    _refuse(config)
     f_idx = torch.arange(num_frames, dtype=torch.int64,
                          device=scene.device)[:, None, None]
     seed = (frame_id + f_idx) & _MASK32
-    pool = (_pool_fused_slots if fused_camera_compatible(scene, env, config)
+    pool = (_pool_fused_slots if _on_path_engines(scene, env, config)
             else _pool_wavefront_slots)
     return pool(scene, camera, env, config, seed)
 

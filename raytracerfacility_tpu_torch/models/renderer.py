@@ -28,7 +28,7 @@ from raytracerfacility_tpu_torch.models.pathtracer import (
     render_frames_counted,
 )
 from raytracerfacility_tpu_torch.ops.camera import CameraProperties
-from raytracerfacility_tpu_torch.ops.environment import EnvironmentState
+from raytracerfacility_tpu_torch.ops.environment import AtmosphereState, EnvironmentState
 from raytracerfacility_tpu_torch.utils.display import encode_u8
 from raytracerfacility_tpu_torch.utils.image import write_png
 from raytracerfacility_tpu_torch.utils.validation import check_finite
@@ -37,8 +37,8 @@ from raytracerfacility_tpu_torch.utils.validation import check_finite
 @dataclasses.dataclass
 class EnvironmentProperties:
     """Host-side environment config with ``Changed()``-style diffing (ref
-    RayTracer.hpp:103-148). The atmosphere fields are left out with the
-    Nishita sky they parameterize."""
+    RayTracer.hpp:103-148): the flat colour, the cubemap, the sun and the
+    Nishita sky's atmosphere and sample counts."""
 
     lighting_type: EnvironmentalLightingType = EnvironmentalLightingType.SCENE
     skylight_intensity: float = 1.0
@@ -48,6 +48,13 @@ class EnvironmentProperties:
     sun_direction: tuple = (0.0, 1.0, 0.0)
     color: tuple = (1.0, 1.0, 1.0)
     cubemap: np.ndarray | None = None  # (6, H, W, >=3)
+    earth_radius: float = 6360.0
+    atmosphere_radius: float = 6420.0
+    hr: float = 7994.0
+    hm: float = 1200.0
+    g: float = 0.76
+    num_samples: int = 16
+    num_samples_light: int = 8
 
     def changed(self, other: "EnvironmentProperties") -> bool:
         """True when any field differs from ``other``'s (ref
@@ -62,9 +69,18 @@ class EnvironmentProperties:
         return a != b
 
     def state(self, device) -> EnvironmentState:
+        """The device-side state (ref renderer.py:59-80); a 3-channel
+        cubemap gets an alpha channel of ones."""
         def t(x):
             return torch.as_tensor(np.asarray(x, np.float32), device=device)
 
+        cubemap = None
+        if self.cubemap is not None:
+            cm = np.asarray(self.cubemap, np.float32)
+            if cm.shape[-1] == 3:
+                cm = np.concatenate([cm, np.ones(cm.shape[:-1] + (1,), np.float32)],
+                                    axis=-1)
+            cubemap = t(np.ascontiguousarray(cm))
         return EnvironmentState(
             skylight_intensity=t(self.skylight_intensity),
             ambient_light_intensity=t(self.ambient_light_intensity),
@@ -72,7 +88,11 @@ class EnvironmentProperties:
             gamma=t(self.gamma),
             sun_direction=t(self.sun_direction),
             color=t(self.color),
-            cubemap=None if self.cubemap is None else t(self.cubemap),
+            cubemap=cubemap,
+            atmosphere=AtmosphereState(
+                earth_radius=t(self.earth_radius),
+                atmosphere_radius=t(self.atmosphere_radius),
+                hr=t(self.hr), hm=t(self.hm), g=t(self.g)),
         )
 
 
@@ -160,6 +180,8 @@ class RayTracerCamera:
             output_type=self.output_type,
             accumulate=self.camera.accumulate,
             alpha_test=self._needs_alpha_test(),
+            atmosphere_samples=env.num_samples,
+            atmosphere_samples_light=env.num_samples_light,
         )
         cam_state, env_state = self.camera.state(self.device), env.state(self.device)
         if frames == 1:

@@ -291,7 +291,8 @@ def trace_planes(tables, planes, n: int, any_hit: bool, stats: bool = False):
         name = f"brute_trace_kernel<{str(bool(any_hit)).lower()}>"
         err = kernels.library("brute").rtf_brute_trace(
             *(p.data_ptr() for p in planes), out.data_ptr(),
-            table.data_ptr(), sub_aabbs.data_ptr(), chunk_aabbs.data_ptr(),
+            table.data_ptr(), sweep.grown_boxes(sub_aabbs).data_ptr(),
+            sweep.grown_boxes(chunk_aabbs).data_ptr(),
             *(c.data_ptr() if stats else None for c in counts),
             n, table.shape[0] // TRI_CHUNK, TRI_CHUNK, SUB, int(any_hit),
             ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream))

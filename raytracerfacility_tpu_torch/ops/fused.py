@@ -202,10 +202,14 @@ def _facing_normal(hit, st):
             torch.where(flip, -nz, nz))
 
 
-def _shade_plain(mat_table, env, st, rng, hit, is_first, has_cont):
+def _shade_plain(mat_table, env, st, rng, hit, is_first, has_cont,
+                 env_miss=False):
     """Default-material shade of live rays (ref pallas_seg.py:506-638):
     flat-environment miss radiance, normal normalize + flip, emission,
     first-hit AOVs, BRDF cone sample around the reflection, energy weight.
+    ``env_miss`` is the miss-plane form (ref pallas_seg.py:511-525 and
+    :572-579): a miss adds no radiance and its first-hit albedo is 0.
+    A missed ray keeps its origin, direction and throughput.
     Returns (new st, new rng, aov (9, R) or None)."""
     bt, bnx, bny, bnz, bmid = hit
     hitm = bt < _HIT_MAX
@@ -213,9 +217,12 @@ def _shade_plain(mat_table, env, st, rng, hit, is_first, has_cont):
     tr, tg, tb = st[TR], st[TG], st[TB]
     rr, rg, rb = st[RR], st[RG], st[RB]
     er, eg, eb = env[0], env[1], env[2]
-    rr = torch.where(missm, rr + tr * er, rr)
-    rg = torch.where(missm, rg + tg * eg, rg)
-    rb = torch.where(missm, rb + tb * eb, rb)
+    if env_miss:
+        er = eg = eb = torch.zeros((), dtype=torch.float32, device=st.device)
+    else:
+        rr = torch.where(missm, rr + tr * er, rr)
+        rg = torch.where(missm, rg + tg * eg, rg)
+        rb = torch.where(missm, rb + tb * eb, rb)
 
     m = mat_table[bmid.to(torch.int64)]
     ar, ag, ab, ro, me, em = (m[:, k] for k in range(6))
@@ -267,19 +274,26 @@ def _shade_plain(mat_table, env, st, rng, hit, is_first, has_cont):
     return new, torch.where(cont, rng2, rng), aov
 
 
-def trace_shade_plain(tables, env, st, rng, tmin, is_first, has_cont, hit=None):
+def trace_shade_plain(tables, env, st, rng, tmin, is_first, has_cont, hit=None,
+                      miss=None):
     """One trace+shade segment for the rays of ``st`` (13, R) / ``rng``
     (R,) int32, computed for the live ones only. Dead rays keep their
     state; on ``is_first`` their AOVs are the no-hit defaults. ``hit``,
     (t, nx, ny, nz, mid) planes of all R rays, replaces the brute-force
-    trace. Returns (new st, new rng, aov (9, R) or None)."""
+    trace. ``miss``, an (R,) float32 plane, selects the miss-plane form
+    (``_shade_plain``'s ``env_miss``) and takes 1 for each live ray that
+    missed, else 0. Returns (new st, new rng, aov (9, R) or None)."""
     table, _, _, mat_table = tables
     live = torch.nonzero(st[ACT] > 0.0)[:, 0]
     sub_st, sub_rng = st[:, live], rng[live]
     hit = (_trace_plain(table, sub_st, tmin) if hit is None
            else tuple(h[live] for h in hit))
     new_sub, new_rng, sub_aov = _shade_plain(
-        mat_table, env, sub_st, sub_rng, hit, is_first, has_cont)
+        mat_table, env, sub_st, sub_rng, hit, is_first, has_cont,
+        env_miss=miss is not None)
+    if miss is not None:
+        miss.zero_()
+        miss[live] = (~(hit[0] < _HIT_MAX)).to(torch.float32)
     st = st.clone()
     rng = rng.clone()
     st[:, live] = new_sub
@@ -560,8 +574,9 @@ def _launch_pool(fn: str, name: str, tables, rays, rng, env, chunk: int,
     if n > 0:
         err = getattr(kernels.library(), fn)(
             rays.data_ptr(), rng.data_ptr(), out.data_ptr(), counts.data_ptr(),
-            table.data_ptr(), sub_aabbs.data_ptr(), chunk_aabbs.data_ptr(),
-            mat_table.data_ptr(), env.data_ptr(),
+            table.data_ptr(), sweep.grown_boxes(sub_aabbs).data_ptr(),
+            sweep.grown_boxes(chunk_aabbs).data_ptr(), mat_table.data_ptr(),
+            env.data_ptr(),
             *([w.data_ptr() for w in work] or [None, None]),
             n, table.shape[0] // chunk, chunk, table.shape[0] // sub_aabbs.shape[0],
             *extra, ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream))

@@ -58,6 +58,7 @@ from raytracerfacility_tpu_torch.ops.brute import (
 )
 from raytracerfacility_tpu_torch.ops.brute import _trace_plain as _brute_plain
 from raytracerfacility_tpu_torch.ops.math3d import inv_dir, parallel_slabs
+from raytracerfacility_tpu_torch.ops import sweep
 from raytracerfacility_tpu_torch.ops.sweep import CHUNK_GROUP
 
 TRI_CHUNK = 256  # default rows per object chunk, the first culling level
@@ -333,6 +334,14 @@ def _trace_plain(tables, rays, n: int) -> torch.Tensor:
 # --------------------------------------------------------------------------
 
 _FLOAT_KEYS = ("table", "sub_aabbs", "obj_chunks", "inst", "inst_box")
+# the object-space boxes the kernel's sweep culls with, which it takes
+# grown (ops/sweep.py grown_boxes); the world-space instance boxes cull as
+# they are, as the plain version's do
+_GROWN_KEYS = ("sub_aabbs", "obj_chunks", "chunk_groups")
+
+
+def _kernel_boxes(tables, key):
+    return sweep.grown_boxes(tables[key]) if key in _GROWN_KEYS else tables[key]
 _INT_KEYS = ("inst_chunks", "inst_perm", "inst_chunk_groups")
 
 
@@ -422,9 +431,10 @@ def trace_planes(tables, planes, n: int, stats: bool = False):
     if n > 0:
         err = kernels.library("inst").rtf_inst_trace(
             *(p.data_ptr() for p in planes), out.data_ptr(),
-            *(tables[k].data_ptr() for k in _FLOAT_KEYS),
+            *(_kernel_boxes(tables, k).data_ptr() for k in _FLOAT_KEYS),
             tables["inst_chunks"].data_ptr(), tables["group_box"].data_ptr(),
-            tables["inst_perm"].data_ptr(), tables["chunk_groups"].data_ptr(),
+            tables["inst_perm"].data_ptr(),
+            _kernel_boxes(tables, "chunk_groups").data_ptr(),
             tables["inst_chunk_groups"].data_ptr(),
             *(c.data_ptr() if stats else None for c in counts),
             n, tables["inst"].shape[0], tables["chunk"], tables["sub"], most,

@@ -94,10 +94,10 @@ def sweep_instanced(tables, o, d, tmin, tmax):
             break
         # 1. keys at each lane's current best t
         in_g, _ = sweep.slab(groups[None], o[:, None], iv[:, None], tmin[:, None],
-                             best["t"][:, None], True)
+                             best["t"][:, None], True, grow=False)
         in_g &= live[:, None]
         in_k, near = sweep.slab(sorted_boxes[None], o[:, None], iv[:, None],
-                                tmin[:, None], best["t"][:, None], True)
+                                tmin[:, None], best["t"][:, None], True, grow=False)
         in_k &= in_g[:, group_of]
         entered = in_k.view(nw, WARP, n_inst).any(1)
         # the round: whole groups from g0 while the words fit
@@ -131,7 +131,7 @@ def sweep_instanced(tables, o, d, tmin, tmax):
             lanes = (wi[:, None] * WARP + torch.arange(WARP, device=dev)).reshape(-1)
             k = perm[(word[wi] & low)].repeat_interleave(WARP)
             enter, _ = sweep.slab(boxes[k], o[lanes], iv[lanes], tmin[lanes],
-                                  best["t"][lanes], True)
+                                  best["t"][lanes], True, grow=False)
             enter &= live[lanes]
             stats[1, lanes] += live[lanes]
             stats[2, lanes] += enter

@@ -39,6 +39,13 @@ other TPU scheduling around the reorder (liveness-window cascades, phase
 split, block-local sorts, sub-run bit tables, chunk visit order) changes no
 ray's result and is not ported: K1 orders its chunks per warp instead
 (``csrc/sweep.cuh``, ``ops/sweep.py``).
+
+Under a cubemap or the Nishita sky (``env_state``) every segment runs
+K1's miss-plane form (the reference kernel's ``xla_env`` instantiation),
+and right after it, before the next reorder, the miss hook
+(``ops/environment.py::miss_radiance``, kernel ``miss_radiance_kernel``)
+adds the environment's radiance to the rays that missed and, on segment
+0, writes their albedo AOV, as the reference's per-segment XLA step does.
 """
 from __future__ import annotations
 
@@ -49,6 +56,7 @@ import torch
 
 from raytracerfacility_tpu_torch import kernels
 from raytracerfacility_tpu_torch.ops import sweep
+from raytracerfacility_tpu_torch.ops.environment import miss_radiance
 from raytracerfacility_tpu_torch.ops.fused import (
     _BOUNCE_TMIN,
     _NO_HIT,
@@ -222,18 +230,18 @@ def _launch_block_perm(perm, st, rng, orig, bsize: int, out) -> None:
     kernels.check(err, "block_perm_kernel")
 
 
-def _segment_plain(tables, env, st, rng, n, is_first, has_cont):
+def _segment_plain(tables, env, st, rng, n, is_first, has_cont, miss=None):
     """Plain version of :func:`segment`."""
     tmin = env[10] if is_first else _BOUNCE_TMIN
     new_st, new_rng, aov = trace_shade_plain(
-        tables, env, st[:, :n], rng[:n], tmin, is_first, has_cont)
+        tables, env, st[:, :n], rng[:n], tmin, is_first, has_cont, miss=miss)
     st[:, :n] = new_st
     rng[:n] = new_rng
     return aov
 
 
 def segment(tables, env, st, rng, n: int, is_first: bool, has_cont: bool,
-            chunk: int, stats: bool = False):
+            chunk: int, stats: bool = False, miss=None):
     """One trace+shade segment over the first ``n`` rays of the pool
     (kernel K1), updating ``st`` (13, R) float32 and ``rng`` (R,) int32 in
     place. ``is_first``: camera rays (trace tmin = ``env[10]``) and
@@ -243,6 +251,15 @@ def segment(tables, env, st, rng, n: int, is_first: bool, has_cont: bool,
     returns (AOVs or None, (5, n) int32 counters in ``sweep.STATS`` order,
     (ceil(n / 32),) int32 row iterations a warp): the kernel's own on the
     card, ``sweep.sweep``'s (order "warp") on the CPU.
+
+    ``miss``, a contiguous (n,) float32 tensor, selects the miss-plane form
+    (the reference kernel's ``xla_env``, pallas_seg.py:258): a live ray
+    that misses adds no flat radiance, its segment-0 albedo AOV stays 0,
+    and ``miss`` takes 1 for it (0 for every other ray), so that the caller
+    can add a ray-dependent environment (:func:`render_pool_sorted`). A
+    missed ray's origin, direction and throughput stay in ``st`` as they
+    were. On the card that is ``seg_segment_kernel<kStats, true>``, counted
+    as ``seg_segment_kernel<miss>``; the flat form holds no miss-plane code.
 
     Replaces ``raytracerfacility_tpu/ops/pallas_seg.py:254 _kernel``. On
     the H100 the kernel is bound by the table rows its warps test (20
@@ -256,7 +273,7 @@ def segment(tables, env, st, rng, n: int, is_first: bool, has_cont: bool,
     over the live prefix the reorder compacts."""
     if st.device.type == "cpu":
         counts = _segment_counts(tables, env, st, n, is_first, chunk) if stats else None
-        aov = _segment_plain(tables, env, st, rng, n, is_first, has_cont)
+        aov = _segment_plain(tables, env, st, rng, n, is_first, has_cont, miss)
         return (aov, *counts) if stats else aov
     if st.device.type != "cuda":
         raise ValueError(f"no kernel for device {st.device}")
@@ -267,9 +284,13 @@ def segment(tables, env, st, rng, n: int, is_first: bool, has_cont: bool,
     if (st.dtype != torch.float32 or st.shape[0] != NPLANES
             or not st.is_contiguous() or rng.dtype != torch.int32
             or rng.shape != (stride,) or not rng.is_contiguous()
-            or rng.device != device or not 0 <= n <= stride):
-        raise ValueError("st must be contiguous (13, R) float32 and rng "
-                         "contiguous (R,) int32 on one device, n <= R")
+            or rng.device != device or not 0 <= n <= stride
+            or (miss is not None and (
+                miss.dtype != torch.float32 or miss.shape != (n,)
+                or not miss.is_contiguous() or miss.device != device))):
+        raise ValueError("st must be contiguous (13, R) float32, rng "
+                         "contiguous (R,) int32 and miss contiguous (n,) "
+                         "float32 on one device, n <= R")
     aov = (torch.empty((NAOV, n), dtype=torch.float32, device=device)
            if is_first else None)
     counts = sweep.empty_stats(n, device) if stats else (None, None)
@@ -278,14 +299,17 @@ def segment(tables, env, st, rng, n: int, is_first: bool, has_cont: bool,
         err = kernels.library().rtf_seg_segment(
             st.data_ptr(), rng.data_ptr(),
             aov.data_ptr() if is_first else None,
-            table.data_ptr(), sub_aabbs.data_ptr(), chunk_aabbs.data_ptr(),
+            miss.data_ptr() if miss is not None else None, table.data_ptr(),
+            sweep.grown_boxes(sub_aabbs).data_ptr(),
+            sweep.grown_boxes(chunk_aabbs).data_ptr(),
             mat_table.data_ptr(), env.data_ptr(),
             *(c.data_ptr() if stats else None for c in counts),
             n, stride, table.shape[0] // chunk, chunk,
             table.shape[0] // sub_aabbs.shape[0], int(is_first), int(has_cont),
             ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream))
-        kernels.LAUNCHES["seg_segment_kernel"] += 1
-        kernels.check(err, "seg_segment_kernel")
+        name = "seg_segment_kernel" if miss is None else "seg_segment_kernel<miss>"
+        kernels.LAUNCHES[name] += 1
+        kernels.check(err, name)
     return (aov, *counts) if stats else aov
 
 
@@ -317,7 +341,9 @@ def render_pool_sorted(tables, origin, direction, rng, valid, env_rgb,
                        bounces: int, chunk: int, presort: bool = False,
                        bperm_rows: int | None = None,
                        bperm_from: int | None = None,
-                       bperm_exact: int | None = None):
+                       bperm_exact: int | None = None, env_state=None,
+                       lighting_type: int = 0, atmos_samples: int = 16,
+                       atmos_samples_light: int = 8):
     """Trace a flat ray pool segment by segment with reordering; signature
     and results as ``ops/fused.py::render_pool_fused`` (Scene lighting).
     Returns (radiance (R,3), first_normal, first_albedo, first_position,
@@ -328,7 +354,17 @@ def render_pool_sorted(tables, origin, direction, rng, valid, env_rgb,
     ``bperm_rows * 128`` rays from segment ``bperm_from`` on, and every
     ``bperm_exact``-th reorder there exact (0: none); ``None`` reads
     ``RTF_TPU_SEG_BPERM``, ``_FROM`` and ``_EXACT`` (defaults 0, 1, 0).
-    The result does not depend on these settings."""
+    The result does not depend on these settings.
+
+    ``env_state`` (an ``EnvironmentState``) takes a ray-dependent miss
+    environment: a cubemap under Scene lighting or the Nishita sky under
+    Skydome (``lighting_type``, with ``atmos_samples`` view and
+    ``atmos_samples_light`` light samples). Each segment then runs K1's
+    miss-plane form and, right after it and before the next reorder, on
+    the segment's rays [0, extent) only, ``ops/environment.py::
+    miss_radiance`` adds ``throughput * light`` to the radiance of the rays
+    that missed, and on segment 0 sets their albedo AOV to ``light`` (ref
+    pallas_seg.py:1035-1060, :1131-1140 and :1185-1187)."""
     bperm_rows, bperm_from, bperm_exact = _bperm_settings(
         bperm_rows, bperm_from, bperm_exact)
     device = origin.device
@@ -347,12 +383,23 @@ def render_pool_sorted(tables, origin, direction, rng, valid, env_rgb,
              if bperm_rows > 0 else None)
     lo, inv_extent = _scene_bounds(tables[2])
 
+    def run(st, rng_i, extent, is_first, has_cont):
+        """K1 over [0, extent), then the miss environment's hook."""
+        miss = (None if env_state is None else
+                torch.empty((extent,), dtype=torch.float32, device=device))
+        aov = segment(tables, env, st, rng_i, extent, is_first=is_first,
+                      has_cont=has_cont, chunk=chunk, miss=miss)
+        if miss is not None:
+            miss_radiance(st, st[RR:RB + 1], miss, env_state, lighting_type,
+                          atmos_samples, atmos_samples_light,
+                          out=aov[3:6] if is_first else None)
+        return aov
+
     total = int(torch.count_nonzero(valid))
     # every ray past `extent` is dead
     extent = reorder(st, rng_i, orig, n_pad, lo, inv_extent) if presort else n
     aov_orig = orig.clone() if presort else None
-    aov = segment(tables, env, st, rng_i, extent, is_first=True,
-                  has_cont=bounces >= 1, chunk=chunk)
+    aov = run(st, rng_i, extent, True, bounces >= 1)
     for s in range(1, bounces + 1):
         use_bperm = bperm_rows > 0 and s >= bperm_from and not (
             bperm_exact > 0
@@ -368,8 +415,7 @@ def render_pool_sorted(tables, origin, direction, rng, valid, env_rgb,
             live = extent = reorder(st, rng_i, orig, extent, lo, inv_extent)
         if live == 0:
             break
-        segment(tables, env, st, rng_i, extent, is_first=False,
-                has_cont=s < bounces, chunk=chunk)
+        run(st, rng_i, extent, False, s < bounces)
         total += live
 
     radiance = torch.empty((3, n_pad), dtype=torch.float32, device=device)

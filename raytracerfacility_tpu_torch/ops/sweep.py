@@ -49,6 +49,12 @@ from raytracerfacility_tpu_torch.ops.math3d import parallel_slabs
 STATS = ("chunk slabs tested", "chunks entered", "run slabs tested",
          "runs entered", "rows tested")
 CULL_PAD = 1.0 / 512.0  # csrc/sweep.cuh kCullPad
+# the culled boxes grow by this times their largest |coordinate|: about 30
+# times the largest outside distance a row test accepts on the recorded
+# rays (tests/test_torch_sweep.py EDGE_BITS, 1.3e-7 at unit coordinates).
+# The work it adds grows with it: bounce rays that leave a wall at a
+# grazing angle enter the grown faces of the boxes that hold the wall
+BOX_GROW = 2.0 ** -18
 LIST_CAP = 1024  # csrc/sweep.cuh kListCap: list words a warp, a round
 PAIR_LANES = 16  # csrc/sweep.cuh kPairLanes
 CHUNK_GROUP = 32  # csrc/sweep.cuh kChunkGroup
@@ -85,11 +91,46 @@ def inv_dir(d):
     return 1.0 / torch.where(d.abs() < 1e-20, eps, d)
 
 
-def slab(box, o, iv, tmin, bt, pad: bool):
+def grow_box_rows(boxes):
+    """Box rows (..., 8) (lo xyz, hi xyz, kind, pad) grown by BOX_GROW
+    times each box's largest |coordinate| along every axis it spans. A
+    row test rounds, and accepts a hit on a triangle's edge that lies
+    outside the triangle by a few units in the last place of the
+    coordinates; a ray that leaves the plane of a box face holding that
+    edge slowly (a bounce ray from the wall beside it, nearly parallel to
+    it) leaves the exact box at t = 0. Grown, the box keeps such a row for
+    the row test to decide. An axis along which the box is flat (its
+    triangles lie in one plane, as a wall's do) does not grow: a ray
+    leaving that plane cannot meet them again, and a grown wall would be
+    entered by the grazing bounce rays that leave it. An empty (inverted)
+    box stays empty."""
+    lo, hi = boxes[..., 0:3], boxes[..., 3:6]
+    g = (torch.maximum(lo.abs().amax(-1), hi.abs().amax(-1)) * BOX_GROW)[..., None]
+    g = torch.where(hi > lo, g, 0.0)
+    return torch.cat([lo - g, hi + g, boxes[..., 6:]], -1)
+
+
+def grown_boxes(boxes):
+    """:func:`grow_box_rows` of a table's boxes, as the sweep kernels take
+    them (K1-K4's wrappers pass these; the tables keep the exact boxes).
+    Kept on the tensor, and made anew after an in-place change."""
+    cached = getattr(boxes, "_rtf_grown", None)
+    if cached is not None and cached[0] == boxes._version:
+        return cached[1]
+    out = grow_box_rows(boxes).contiguous()
+    boxes._rtf_grown = (boxes._version, out)
+    return out
+
+
+def slab(box, o, iv, tmin, bt, pad: bool, grow: bool | None = None):
     """Slab test of boxes ``box`` (..., 8) against rays ``o``/``iv`` (...,
     3) with windows ``tmin``/``bt`` (...), axes the ray runs parallel to
     closed (:func:`parallel_slabs`). Returns (enters, near), near padded
-    when ``pad``."""
+    when ``pad``. ``grow`` (default: ``pad``) tests the boxes of
+    :func:`grow_box_rows`, as the sweep kernels do; K4's instance boxes
+    do not grow."""
+    if pad if grow is None else grow:
+        box = grow_box_rows(box)
     lo, hi = box[..., 0:3], box[..., 3:6]
     t1, t2 = parallel_slabs((lo - o) * iv, (hi - o) * iv, lo, hi, o, iv)
     near = torch.minimum(t1, t2).amax(-1)
@@ -121,7 +162,7 @@ def _test_rows(layout, rows, o, d, tmin):
 def sweep(table, subs, chunks, chunk: int, o, d, tmin, tmax, live,
           layout: str, any_hit: bool = False, order: str = "warp",
           pad: bool = True, best0=None, skip_inverted: bool = False,
-          groups=None, pairs: bool | None = None):
+          groups=None, pairs: bool | None = None, grow: bool | None = None):
     """Replay the culled sweep over ``table`` (K1's 20-column or K3's
     12-column rows), ``subs`` (run boxes, K3's run kind in column 6) and
     ``chunks`` for rays ``o``, ``d`` (n, 3) with windows ``tmin``, ``tmax``
@@ -134,7 +175,10 @@ def sweep(table, subs, chunks, chunk: int, o, d, tmin, tmax, live,
     keys a group's chunks only if it enters the group's box, and a group
     no lane enters is passed over; its slab tests count as chunk slabs).
     ``pairs``: whether runs at most :data:`PAIR_LANES` lanes enter are
-    tested as (ray, row) pairs (default: in the "warp" order). Returns (record: dict
+    tested as (ray, row) pairs (default: in the "warp" order). ``grow``
+    (default: ``pad``) grows the culled boxes as the kernels do
+    (:func:`slab`); ``pad`` without ``grow`` is the earlier kernels' cull.
+    Returns (record: dict
     of (n,) tensors, K1 t/nx/ny/nz/mid/id, K3 t/id/u/v, and "rounds", the
     lane's warp's rounds; counters (5, n) int32 in :data:`STATS` order;
     warp row iterations (ceil(n / 32),) int32)."""
@@ -187,11 +231,11 @@ def sweep(table, subs, chunks, chunk: int, o, d, tmin, tmax, live,
         # the round's chunks, as words in the warp's order (_NO_WORD last):
         # from `start` on, up to and with the cap-th one some lane enters
         ent, near = slab(chunks[None, :nchunks], o[:, None], iv[:, None],
-                         tmin[:, None], best["t"][:, None], pad)
+                         tmin[:, None], best["t"][:, None], pad, grow)
         ent &= live[:, None]
         if groups is not None:
             g_ent, _ = slab(groups[None], o[:, None], iv[:, None], tmin[:, None],
-                            best["t"][:, None], pad)
+                            best["t"][:, None], pad, grow)
             g_ent &= live[:, None]
             ent &= g_ent[:, cidx // CHUNK_GROUP]
         entered = (ent.view(nw, WARP, nchunks).any(1) & (cidx >= start[:, None])
@@ -240,7 +284,7 @@ def sweep(table, subs, chunks, chunk: int, o, d, tmin, tmax, live,
             lanes = (wi[:, None] * WARP + lane).reshape(-1)
             c = (word[wi] & low).repeat_interleave(WARP)
             lo_, io_, tm_ = o[lanes], iv[lanes], tmin[lanes]
-            in_chunk, _ = slab(chunks[c], lo_, io_, tm_, best["t"][lanes], pad)
+            in_chunk, _ = slab(chunks[c], lo_, io_, tm_, best["t"][lanes], pad, grow)
             in_chunk &= live[lanes]
             if order == "warp":
                 stats[0, lanes] += live[lanes]
@@ -248,7 +292,7 @@ def sweep(table, subs, chunks, chunk: int, o, d, tmin, tmax, live,
             # runs no lane enters at the chunk's entry best t stay unentered
             run_box = subs[c[:, None] * runs + run_j]
             cand, _ = slab(run_box, lo_[:, None], io_[:, None],
-                           tm_[:, None], best["t"][lanes][:, None], pad)
+                           tm_[:, None], best["t"][lanes][:, None], pad, grow)
             cand &= in_chunk[:, None]
             if skip_inverted:
                 cand &= run_box[..., 0] <= run_box[..., 3]
@@ -256,7 +300,7 @@ def sweep(table, subs, chunks, chunk: int, o, d, tmin, tmax, live,
             for j in torch.nonzero(cand.any(0))[:, 0].tolist():
                 r = c * runs + j
                 bt = best["t"][lanes]
-                in_run, _ = slab(subs[r], lo_, io_, tm_, bt, pad)
+                in_run, _ = slab(subs[r], lo_, io_, tm_, bt, pad, grow)
                 in_run &= in_chunk
                 if skip_inverted:
                     in_run &= subs[r, 0] <= subs[r, 3]

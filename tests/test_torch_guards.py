@@ -1,7 +1,8 @@
 """Guards of the PyTorch port: it never imports JAX (the camera facade,
-the denoiser and the LiDAR scanner included), a CUDA request never runs
-on the CPU, no wrapper falls back to its plain version off the CPU,
-and renders outside the ported envelope raise NotImplementedError."""
+the denoiser, the LiDAR scanner and the cubemap and sky environments
+included), a CUDA request never runs on the CPU, no wrapper falls back to
+its plain version off the CPU, and renders outside the ported envelope
+raise NotImplementedError."""
 
 from __future__ import annotations
 
@@ -22,7 +23,7 @@ from raytracerfacility_tpu_torch.enums import (
 )
 from raytracerfacility_tpu_torch.models import pathtracer as pt
 from raytracerfacility_tpu_torch.models.renderer import EnvironmentProperties
-from raytracerfacility_tpu_torch.ops import brute, fused, inst, seg, traverse
+from raytracerfacility_tpu_torch.ops import brute, environment, fused, inst, seg, traverse
 from raytracerfacility_tpu_torch.ops.bvh import BVH
 from raytracerfacility_tpu_torch.scene import MaterialProperties
 from raytracerfacility_tpu_torch.scene.builder import compile_shared_instanced
@@ -43,6 +44,18 @@ for make in (bench_scene, lambda w, h: strands_scene(w, h, n_strands=40)):
             scene.build("cpu"), cam.state("cpu"), env.state("cpu"),
             RenderConfig(width=8, height=8, bounces=2, lighting_type=lighting),
             init_frame(8, 8, "cpu"), 2)
+        assert frame.color.shape == (8, 8, 4) and int(rays) > 0
+import numpy as np
+from raytracerfacility_tpu_torch.models.renderer import EnvironmentProperties
+for make in (bench_scene, lambda w, h: strands_scene(w, h, n_strands=4)):
+    for lighting, props in ((EnvironmentalLightingType.SKYDOME, EnvironmentProperties()),
+                            (EnvironmentalLightingType.SCENE, EnvironmentProperties(
+                                cubemap=np.ones((6, 4, 4, 3), np.float32)))):
+        scene, cam, _ = make(8, 8)
+        frame, rays = render_frames_counted(
+            scene.build("cpu"), cam.state("cpu"), props.state("cpu"),
+            RenderConfig(width=8, height=8, bounces=1, lighting_type=lighting),
+            init_frame(8, 8, "cpu"), 1)
         assert frame.color.shape == (8, 8, 4) and int(rays) > 0
 from raytracerfacility_tpu_torch.ops.inst import trace_closest_instanced
 from raytracerfacility_tpu_torch.scene.builder import compile_shared_instanced
@@ -130,6 +143,13 @@ def test_wrappers_do_not_fall_back_off_the_cpu():
     rng = torch.zeros(64, dtype=torch.int32, device="meta")
     with pytest.raises(ValueError):
         seg.segment(tables, env, st, rng, 64, True, True, 256)
+    with pytest.raises(ValueError):
+        seg.segment(tables, env, st, rng, 64, True, True, 256,
+                    miss=torch.zeros(64, device="meta"))
+    sky = EnvironmentProperties(lighting_type=EnvironmentalLightingType.SKYDOME)
+    with pytest.raises(ValueError):
+        environment.miss_radiance(st, st[10:13], torch.zeros(64, device="meta"),
+                                  sky.state("meta"), EnvironmentalLightingType.SKYDOME)
     with pytest.raises(ValueError):
         fused.fused_path(tables, torch.zeros((7, 64), device="meta"), rng,
                          env, 2, 256)
@@ -345,20 +365,12 @@ def _render(scene, env_props, **config):
         pt.init_frame(8, 8, "cpu"))
 
 
-@pytest.mark.parametrize("case", [
-    "skydome_strands", "skydome", "cubemap", "alpha_test", "btf_config",
-    "subsurface_config", "cubemap_strands"])
+@pytest.mark.parametrize("case", ["alpha_test", "btf_config", "subsurface_config"])
 def test_render_outside_envelope_raises(case):
-    """What the port still refuses; the strands cases take the wavefront
-    engine rather than the path engines."""
-    scene, _, env = (strands_scene if case.endswith("_strands")
-                     else bench_scene)(8, 8)
+    """What the port still refuses."""
+    scene, _, env = bench_scene(8, 8)
     config = {}
-    if case.startswith("skydome"):
-        config["lighting_type"] = EnvironmentalLightingType.SKYDOME
-    elif case.startswith("cubemap"):
-        env = EnvironmentProperties(cubemap=np.ones((6, 4, 4, 3), np.float32))
-    elif case == "alpha_test":
+    if case == "alpha_test":
         config["alpha_test"] = True
     elif case == "btf_config":
         config["enable_btf"] = True
@@ -368,25 +380,36 @@ def test_render_outside_envelope_raises(case):
         _render(scene, env, **config)
 
 
-@pytest.mark.parametrize("case", ["skydome", "cubemap"])
-def test_estimate_outside_envelope_raises(case):
-    """The estimator refuses what the camera path refuses, before tracing."""
-    from raytracerfacility_tpu_torch.models.illumination import (
-        estimate_illumination,
-        probes_from_mesh,
-    )
-    from raytracerfacility_tpu_torch.scene import make_plane
-
-    scene, _, env = bench_scene(8, 8)
-    config = pt.RenderConfig(bounces=1)
-    if case == "skydome":
-        config = pt.RenderConfig(bounces=1,
-                                 lighting_type=EnvironmentalLightingType.SKYDOME)
-    else:
-        env = EnvironmentProperties(cubemap=np.ones((6, 4, 4, 3), np.float32))
-    probes = probes_from_mesh(make_plane(1.0), np.eye(4, dtype=np.float32), "cpu")
-    with pytest.raises(NotImplementedError):
-        estimate_illumination(scene.build("cpu"), env.state("cpu"), config, probes)
+@pytest.mark.parametrize("bad", ["flat", "miss_dtype", "rows", "short", "stride",
+                                 "cubemap_channels", "cubemap_alignment"])
+def test_miss_inputs_are_validated(bad):
+    """The miss kernel reads path-state planes by row stride, the miss
+    plane by ray and the cubemap's texels as float4: inputs it would
+    misread never launch, and the flat colour never reaches it."""
+    st = torch.zeros((13, 256))
+    rad, miss, out = st[10:13], torch.zeros(200), torch.zeros((3, 200))
+    cube = torch.zeros((6, 4, 4, 4))
+    device = torch.device("cpu")
+    environment.check_miss_inputs(st, rad, miss, out, cube, device)
+    if bad == "flat":
+        with pytest.raises(ValueError):
+            environment.miss_radiance(st, rad, miss, EnvironmentProperties().state("cpu"),
+                                      EnvironmentalLightingType.SCENE)
+        return
+    if bad == "miss_dtype":
+        miss = miss.double()
+    elif bad == "rows":
+        st = st[:9]
+    elif bad == "short":
+        out = out[:, :199]
+    elif bad == "stride":
+        rad = torch.zeros((200, 3)).T
+    elif bad == "cubemap_channels":
+        cube = cube[..., :3].contiguous()
+    else:  # a view 4 bytes into its storage
+        cube = torch.zeros(6 * 4 * 4 * 4 + 1)[1:].view(6, 4, 4, 4)
+    with pytest.raises(ValueError):
+        environment.check_miss_inputs(st, rad, miss, out, cube, device)
 
 
 @pytest.mark.parametrize("case", [

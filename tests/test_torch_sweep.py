@@ -164,6 +164,46 @@ def test_junction_rays_need_the_cull_pad(order):
     assert torch.equal(got[True], want)
 
 
+# bounce rays of the config-2 path (1920x1080, 8 bounces; launches 5, 11,
+# 19 and 30 of its 36, one ray each: ox, oy, oz, dx, dy, dz, tmin, tmax
+# as int32 bits) that leave a wall of the box nearly along it and hit the
+# edge of the wall ahead, outside that wall's triangle by 8e-9 to 1.3e-7,
+# which the row test's rounding accepts; the exact boxes they leave at
+# t = 0 culled the hit, and the kernel took the sky (chip_smoke.py)
+EDGE_BITS = [
+    [1065353216, 1060509367, -1082368938, 888668160, 1058994631, -1085757473,
+     981668463, 1621981420],
+    [1025518528, 0, -1082917483, 1047287286, -1238237184, -1082583382, 981668463,
+     1621981420],
+    [-1082148622, 0, -1099550240, -1082587488, -1207549952, -1100127324,
+     981668463, 1621981420],
+    [1065353216, 983150754, -1092381535, 915734528, -1106763144, 1065204294,
+     981668463, 1621981420],
+]
+
+
+@pytest.mark.parametrize("order", ["index", "warp"])
+def test_grown_boxes_keep_edge_hits_of_rays_leaving_a_wall(order):
+    """The sweep's culls grow each box by BOX_GROW times its largest
+    |coordinate| along each axis it spans (``sweep.grown_boxes``): with
+    the exact boxes every
+    recorded ray misses, grown it takes brute force's hit bit for bit."""
+    scene, _, _ = bench_scene(8, 8)
+    tables = scene.build("cpu").fused
+    rays = torch.tensor(np.array(EDGE_BITS, np.int32)).view(torch.float32)
+    st = fused.init_state(rays[:, 0:3], rays[:, 3:6], torch.ones(rays.shape[0]))
+    want = fused._trace_plain(tables[0], st, fused._BOUNCE_TMIN)
+    assert bool((want[0] < 1.0).all())  # brute force hits, near the origin
+    got = {}
+    for grow in (False, True):
+        rec, _, _ = sweep.sweep(*tables[:3], 256, rays[:, 0:3], rays[:, 3:6],
+                                rays[:, 6], rays[:, 7], torch.ones(4, dtype=torch.bool),
+                                "k1", order=order, grow=grow)
+        got[grow] = torch.stack([rec[k] for k in ("t", "nx", "ny", "nz", "mid")])
+    assert bool((got[False][0] == sweep.K1_TMAX).all())
+    assert torch.equal(got[True], torch.stack(want))
+
+
 # BASELINE config 5's LiDAR beam 75175 of 250,000 (chip_smoke.py phase
 # 20): parallel to the y and x axes, at the height of the sphere's pole,
 # whose run box's upper y face it lies on; and a beam beside it
@@ -176,21 +216,25 @@ def test_parallel_beam_on_a_box_face_keeps_its_hit(order, monkeypatch):
     """An axis the ray runs parallel to gets a closed slab: with the
     held inverse alone, (hi - o) * 1e20 = 0 ends the beam's stay in the
     pole's run box at t = 0 and the sweep takes the back wall behind the
-    sphere; closed, it takes brute force's hit on the pole, bit for bit."""
+    sphere; closed, it takes brute force's hit on the pole, bit for bit.
+    (The grown boxes of the sweep's culls also keep the beam inside the
+    box; the open face is shown on the exact boxes.)"""
     scene, _, _ = bench_scene(8, 8)
     tables = scene.build("cpu").pallas_tris
     rays = torch.tensor(PARALLEL_BEAMS, dtype=torch.float32)
     want = brute._trace_plain(tables[0], rays.T.contiguous(), rays.shape[0])
 
-    def run():
+    def run(grow=None):
         rec, _, _ = sweep.sweep(*tables, brute.TRI_CHUNK, rays[:, 0:3], rays[:, 3:6],
                                 rays[:, 6], rays[:, 7], rays[:, 7] > rays[:, 6], "k3",
-                                order=order)
+                                order=order, grow=grow)
         return torch.stack([rec[k] for k in ("t", "id", "u", "v")])
 
     assert torch.equal(run(), want)
+    assert torch.equal(run(grow=False), want)
     monkeypatch.setattr(sweep, "parallel_slabs", lambda t1, t2, *_: (t1, t2))
-    open_face = run()
+    assert torch.equal(run(), want)
+    open_face = run(grow=False)
     assert float(open_face[0, 0]) > float(want[0, 0]) + 1.0  # the back wall
     assert torch.equal(open_face[:, 1], want[:, 1])
 

@@ -2,11 +2,13 @@
 """Time the port's trace kernels K1 (``seg_segment_kernel``), K2
 (``fused_path_kernel``), K2-SLS (``fused_sls_kernel``), K3
 (``brute_trace_kernel``), K4 (``inst_trace_kernel``) and K5
-(``bvh_trace_kernel``) at the launches ``chip_smoke.py`` times them, for
-the port package of one tree, so that two trees compare inside one call:
+(``bvh_trace_kernel``), K1's miss-plane form (K1env) and the miss-radiance
+kernel (MISS) at the launches ``chip_smoke.py`` times them, for the port
+package of one tree, so that two trees compare inside one call:
 
     python3 time_sweeps.py [--tree DIR] [--reps 5] [--only K2,K2-SLS]
     python3 time_sweeps.py --alternate DIR[,DIR...] [--rounds 40] [--only K2]
+    python3 time_sweeps.py --boxes [--rounds 40]
 
 ``--tree`` names a checkout whose ``raytracerfacility_tpu_torch`` is
 imported (default: this file's own); its kernels build into that tree's
@@ -20,7 +22,12 @@ any-hit); the forest (1,024 x 262,144 triangles) and the config-6 canopy
 under 512x512 primary rays (K4); on ``build_bvh=True`` scenes, config 6's
 first walker launch at 512x512 x 2 frames and its SingleLightSource shadow
 rays, config 7's first walker launch at 2 frames and config 4's first
-(K5). ``--only`` keeps the named kernels' shapes. Each time is the median
+(K5); under the Nishita sky of ``chip_smoke.py`` phase 21, the 1080p
+path's first two K1-env launches (K1env) and the miss kernel's first
+launch with missed rays at 1080p under the sky and under phase 22's
+cubemap, and its first launch of config 4 under the sky (MISS; the names
+K1env and MISS need a tree that has them). ``--only`` keeps the named
+kernels' shapes (default: all but K1env and MISS). Each time is the median
 of ``--reps`` CUDA-event timings of one launch (K1's inputs are cloned
 inside the window, as ``chip_smoke.py`` does). Needs one CUDA device;
 prints the card's ``nvidia-smi`` name and power limit, then one JSON line.
@@ -31,6 +38,13 @@ its own and launched through its C entry on the same pools, the trees in
 turns, for ``--rounds`` rounds (a sample: the mean of 3 launches back to
 back), so that drift over the call falls on every tree alike; a
 difference of 1% shows where separate processes spread by 5%.
+
+``--boxes`` times this tree's K1 (1080p segment 1, config 6 segment 1),
+K2 (its pool) and K3 (config 7's first segment) with the sweep boxes
+grown as the wrappers pass them (``ops/sweep.py`` ``grown_boxes``) and
+with the exact ones, in turns in one process for ``--rounds`` rounds,
+and prints each kernel's work counters (means a ray) for both: the cost
+of the growth.
 """
 
 from __future__ import annotations
@@ -105,6 +119,7 @@ def main() -> int:
     ap.add_argument("--only", default="K1,K2,K2-SLS,K3,K4,K5")
     ap.add_argument("--alternate", default="")
     ap.add_argument("--rounds", type=int, default=40)
+    ap.add_argument("--boxes", action="store_true")
     args = ap.parse_args()
     only = set(args.only.split(","))
     sys.path.insert(0, str(pathlib.Path(args.tree).resolve()))
@@ -125,6 +140,9 @@ def main() -> int:
     if args.alternate:
         alternate_k2(args, dev, ms, only, [args.tree, *args.alternate.split(",")])
         only = set()
+    if args.boxes:
+        grown_vs_exact(args, dev, ms)
+        only = set()
     if "K1" in only:
         time_k1_shapes(args, dev, ms)
     if only & {"K2", "K2-SLS"}:
@@ -135,6 +153,8 @@ def main() -> int:
         time_k4_shapes(args, dev, ms)
     if "K5" in only:
         time_k5_shapes(args, dev, ms)
+    if only & {"K1env", "MISS"}:
+        time_env_shapes(args, dev, ms, only)
     print(json.dumps({"tree": args.tree, "card": smi, "torch": torch.__version__,
                       "ms": {k: v[0] for k, v in ms.items()},
                       "times": {k: v[1] for k, v in ms.items()}}))
@@ -235,6 +255,169 @@ def time_k5_shapes(args, dev, ms):
     probes = TriangleIlluminationEstimator().prepare_light_probe_group(items, dev)
     time_launch("K5 closest config 4 segment 0", lambda: estimate_illumination_counted(
         c4, env.state(dev), config, probes, seed=1), False)
+
+
+def grown_vs_exact(args, dev, ms):
+    """The module's ``--boxes``: each shape with the grown and the exact
+    sweep boxes, in turns (a sample: the mean of 3 launches back to
+    back), and the kernels' ``stats=True`` counters for both."""
+    import statistics
+
+    import torch
+
+    from raytracerfacility_tpu_torch.models.pathtracer import (
+        RenderConfig,
+        camera_pool,
+        init_frame,
+        render_frames_counted,
+    )
+    from raytracerfacility_tpu_torch.ops import brute, fused, seg, sweep
+    from raytracerfacility_tpu_torch.ops.rng import to_int32
+    from raytracerfacility_tpu_torch.scenes import (
+        bench_scene,
+        canopy_scene,
+        strands_scene,
+    )
+
+    shapes = {}
+    scene, cam, env = bench_scene(1920, 1080)
+    c = scene.build(dev)
+    o, d, rng, _, env0 = camera_pool(
+        c, cam.state(dev), env.state(dev), RenderConfig(width=1920, height=1080, bounces=8),
+        torch.zeros((1, 1, 1), dtype=torch.int64, device=dev))
+    n = o.shape[0]
+    st1 = fused.init_state(o, d, torch.ones(n, device=dev))
+    rng1 = to_int32(rng).contiguous()
+    seg.segment(c.fused, env0, st1, rng1, n, True, True, c.fused_chunk)
+    lo, inv_extent = seg._scene_bounds(c.fused[2])
+    n1 = seg.reorder(st1, rng1, torch.arange(n, device=dev), n, lo, inv_extent)
+    shapes["K1 1080p segment 1"] = lambda stats=False: seg.segment(
+        c.fused, env0, st1.clone(), rng1.clone(), n1, False, True, c.fused_chunk,
+        stats=stats)
+    scene, cam, env = canopy_scene(512, 512)
+    c6 = scene.build(dev)
+    t6, e6, s6, r6, n6, f6, h6, ch6 = _first_call(
+        seg, "segment", lambda: render_frames_counted(
+            c6, cam.state(dev), env.state(dev), RenderConfig(width=512, height=512,
+                                                             bounces=2),
+            init_frame(512, 512, dev), 2), lambda a: not a["is_first"])[:8]
+    shapes["K1 config 6 segment 1"] = lambda stats=False: seg.segment(
+        t6, e6, s6.clone(), r6.clone(), n6, f6, h6, ch6, stats=stats)
+    _, cp, rays, rngp, envp, bounces = _k2_pools(dev, {"K2"})[
+        "K2 256x256 x 4 frames, 8 bounces"]
+    shapes["K2 256x256 x 4 frames, 8 bounces"] = lambda stats=False: fused.fused_path(
+        cp.fused, rays, rngp, envp, bounces, cp.fused_chunk, stats=stats)
+    scene, cam, env = strands_scene(512, 512)
+    c7 = scene.build(dev)
+    tabs, planes, n7 = _first_call(brute, "trace_planes", lambda: render_frames_counted(
+        c7, cam.state(dev), env.state(dev), RenderConfig(width=512, height=512, bounces=2),
+        init_frame(512, 512, dev), 8), lambda a: not a["any_hit"])[:3]
+    planes = [p[:n7].contiguous() for p in planes]
+    shapes["K3 config 7 segment 0"] = lambda stats=False: brute.trace_planes(
+        tabs, planes, n7, False, stats=stats)
+
+    grown = sweep.grown_boxes
+    kinds = {"grown": grown, "exact": lambda boxes: boxes}
+    try:
+        for name, fn in shapes.items():
+            counters = {}
+            for kind, boxes in kinds.items():
+                sweep.grown_boxes = boxes
+                per_ray = fn(stats=True)[-2].double()
+                counters[kind] = [round(float(x), 3) for x in
+                                  per_ray.reshape(-1, per_ray.shape[-1]).mean(1)]
+            times = {kind: [] for kind in kinds}
+            for r in range(args.rounds):
+                for kind in (list(kinds) if r % 2 == 0 else list(kinds)[::-1]):
+                    sweep.grown_boxes = kinds[kind]
+                    fn()
+                    torch.cuda.synchronize()
+                    start = torch.cuda.Event(enable_timing=True)
+                    end = torch.cuda.Event(enable_timing=True)
+                    start.record()
+                    for _ in range(3):
+                        fn()
+                    end.record()
+                    end.synchronize()
+                    times[kind].append(start.elapsed_time(end) / 3)
+            for kind, t in times.items():
+                ms[f"{name} {kind}"] = (statistics.median(t), t)
+            print(f"{name}: grown {statistics.median(times['grown']):.4f} ms, exact "
+                  f"{statistics.median(times['exact']):.4f} ms; counters a ray "
+                  f"({', '.join(sweep.STATS)}): grown {counters['grown']}, exact "
+                  f"{counters['exact']}", flush=True)
+    finally:
+        sweep.grown_boxes = grown
+
+
+def time_env_shapes(args, dev, ms, only):
+    """K1's miss-plane form on the first two launches of the 1080p path
+    under the sky (8 bounces, one frame), and the miss kernel on its first
+    launch with missed rays there and under the cubemap, and on its first
+    launch of config 4 under the sky (its radiance grows in place from one
+    timed launch to the next; the time does not depend on it)."""
+    import numpy as np
+    import torch
+
+    from raytracerfacility_tpu_torch.enums import EnvironmentalLightingType
+    from raytracerfacility_tpu_torch.models.illumination import (
+        TriangleIlluminationEstimator,
+        estimate_illumination_counted,
+    )
+    from raytracerfacility_tpu_torch.models.pathtracer import (
+        RenderConfig,
+        init_frame,
+        render_frames_counted,
+    )
+    from raytracerfacility_tpu_torch.models.renderer import EnvironmentProperties
+    from raytracerfacility_tpu_torch.ops import environment, seg
+    from raytracerfacility_tpu_torch.scenes import bench_scene, canopy_illumination
+
+    sky_type = EnvironmentalLightingType.SKYDOME
+    sky = EnvironmentProperties(lighting_type=sky_type, sun_direction=(0.2, 0.8, 0.3))
+    cube = EnvironmentProperties(skylight_intensity=0.9, cubemap=np.random.default_rng(
+        10).uniform(0.0, 1.5, (6, 512, 512, 4)).astype(np.float32))
+    scene, cam, _ = bench_scene(1920, 1080)
+    compiled = scene.build(dev)
+
+    def render(props, lighting):
+        return lambda: render_frames_counted(
+            compiled, cam.state(dev), props.state(dev),
+            RenderConfig(width=1920, height=1080, bounces=8, lighting_type=lighting),
+            init_frame(1920, 1080, dev), 1)
+
+    def time_miss(what, call):
+        state, radiance, miss, env, lighting, samples, samples_light, out = call
+        ms[what] = _median_ms(lambda: environment.miss_radiance(
+            state, radiance, miss, env, lighting, samples, samples_light, out=out),
+            args.reps)
+
+    if "K1env" in only:
+        for s in (0, 1):
+            launch = _first_call(seg, "segment", render(sky, sky_type),
+                                 lambda a, s=s: a["miss"] is not None
+                                 and a["is_first"] == (s == 0))
+            tables, env, st, rng, n, first, has_cont, chunk = launch[:8]
+            miss = torch.empty(n, device=dev)
+            ms[f"K1env 1080p sky segment {s}"] = _median_ms(
+                lambda: seg.segment(tables, env, st.clone(), rng.clone(), n, first,
+                                    has_cont, chunk, miss=miss), args.reps)
+    if "MISS" in only:
+        def missed(a):
+            return bool((a["miss"] > 0).any())
+
+        for what, props, lighting in (
+                ("sky", sky, sky_type),
+                ("cubemap", cube, EnvironmentalLightingType.SCENE)):
+            time_miss(f"MISS 1080p {what}", _first_call(
+                environment, "miss_radiance", render(props, lighting), missed))
+        scene, items, _, config = canopy_illumination()
+        c4 = scene.build(dev)
+        probes = TriangleIlluminationEstimator().prepare_light_probe_group(items, dev)
+        cfg = RenderConfig(bounces=config.bounces, samples=1, lighting_type=sky_type)
+        time_miss("MISS config 4 sky segment 0", _first_call(
+            environment, "miss_radiance", lambda: estimate_illumination_counted(
+                c4, sky.state(dev), cfg, probes, seed=1), missed))
 
 
 def time_k1_shapes(args, dev, ms):
