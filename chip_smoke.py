@@ -727,15 +727,36 @@ def k1_launch(launch, k3_tables, rays, what, warps=SAMPLE_WARPS):
     same scene (the same v0, e1, e2 and Moller-Trumbore as K1's rows, so
     the same t; checked against K1's plain trace on a sample), the bound
     and the sweep's work. Returns (max |d|, plain ms, JSON numbers)."""
-    import torch
-
     from raytracerfacility_tpu_torch import kernels
-    from raytracerfacility_tpu_torch.ops import brute, fused, seg, sweep
+    from raytracerfacility_tpu_torch.ops import seg, sweep
 
     tables, env, st, rng, n, first, has_cont, chunk = launch
     err, plain_ms, _ = check_k1_launch(launch, rays, what)
     ms, times = _median_ms(lambda: seg.segment(tables, env, st.clone(), rng.clone(),
                                                n, first, has_cont, chunk))
+    # 14 planes in (13 state + rng), 14 out, 9 AOV planes out when first
+    bnd, by, tri, best_t = k1_bound(launch, k3_tables, 28 + 9 * first, what)
+    print(f"  K1 {what} at {n} rays ({tables[0].shape[0] // chunk} chunks, "
+          f"{kernels.THREADS // sweep.WARP * 4 * min(tables[0].shape[0] // chunk, sweep.LIST_CAP)}"
+          f" bytes of shared memory a block): kernel median of 5 {ms:.3f} ms "
+          f"({', '.join(f'{t:.3f}' for t in times)}), plain {plain_ms:.1f} ms on "
+          f"{n if rays is None else rays.numel()} rays; {tri} triangle tests after "
+          f"culling, bound {bnd:.4f} ms by {by}")
+    shape = k1_shape(launch, ms, bnd, by, best_t, what, warps)
+    return err, plain_ms, dict(shape, plain_rays=n if rays is None else rays.numel())
+
+
+def k1_bound(launch, k3_tables, planes_io, what):
+    """(bound ms, bound by, triangle tests, each ray's final best t) of a
+    captured K1 launch: the best t from K3 over the same scene (the same
+    v0, e1, e2 and Moller-Trumbore as K1's rows, so the same t; checked
+    against K1's plain trace on a sample), the tests a per-ray cull leaves
+    at it, the tables and ``planes_io`` planes of n rays as bytes."""
+    import torch
+
+    from raytracerfacility_tpu_torch.ops import brute, fused, sweep
+
+    tables, env, st, rng, n, first, has_cont, chunk = launch
     tmin = float(env[10]) if first else fused._BOUNCE_TMIN
     planes = [st[k, :n].contiguous() for k in range(fused.OX, fused.DZ + 1)] + [
         torch.full((n,), tmin, device=st.device),
@@ -750,17 +771,8 @@ def k1_launch(launch, k3_tables, rays, what, warps=SAMPLE_WARPS):
     if not torch.equal(best_t[some][live], want[live]):
         raise AssertionError(f"{what}: K3's t differs from K1's plain trace")
     tri, _ = culled_tests(tables, chunk, planes, n, best_t)
-    # 14 planes in (13 state + rng), 14 out, 9 AOV planes out when first
-    nbytes = _nbytes(*tables) + _nbytes(env) + 4 * (28 + 9 * first) * n
-    bnd, by = bound(nbytes, tri, 0)
-    print(f"  K1 {what} at {n} rays ({tables[0].shape[0] // chunk} chunks, "
-          f"{kernels.THREADS // sweep.WARP * 4 * min(tables[0].shape[0] // chunk, sweep.LIST_CAP)}"
-          f" bytes of shared memory a block): kernel median of 5 {ms:.3f} ms "
-          f"({', '.join(f'{t:.3f}' for t in times)}), plain {plain_ms:.1f} ms on "
-          f"{n if rays is None else rays.numel()} rays; {tri} triangle tests after "
-          f"culling, bound {bnd:.4f} ms by {by}")
-    shape = k1_shape(launch, ms, bnd, by, best_t, what, warps)
-    return err, plain_ms, dict(shape, plain_rays=n if rays is None else rays.numel())
+    nbytes = _nbytes(*tables) + _nbytes(env) + 4 * planes_io * n
+    return bound(nbytes, tri, 0) + (tri, best_t)
 
 
 def fused_work(tables, chunk, rays, rng, env, out_k, what, bounces=None,
@@ -1370,6 +1382,31 @@ def check_k5(bvh, planes, n, any_hit, what):
     return err, (out_k, prim_k, stats_k), start.elapsed_time(end), diff.numel()
 
 
+def warp_union(bvh, rays, n, lanes):
+    """The steps of a skip walk uniform across each warp of 32 rays (the
+    union of its lanes' walks, ``traverse._walk_plain(..., warp_steps=True)``)
+    over the warps that hold a live lane: the median and p90 of a warp's
+    steps and of its longest lane's node visits, the median of its mean
+    lane's, and the lane visits a step (the lanes a node load would serve)
+    over those warps."""
+    import torch
+
+    from raytracerfacility_tpu_torch.ops import traverse
+
+    stats = traverse._walk_plain(bvh, rays, n, True, stats=True, warp_steps=True)[2]
+    pad = -n % 32
+    visits = torch.nn.functional.pad(stats[0], (0, pad)).view(-1, 32).double()
+    steps = torch.nn.functional.pad(stats[2], (0, pad)).view(-1, 32)[:, 0].double()
+    live = torch.nn.functional.pad(lanes, (0, pad)).view(-1, 32).any(1)
+    steps, visits = steps[live], visits[live]
+    longest, mean = visits.max(1)[0], visits.mean(1)
+    return {"warps": int(live.sum()), "steps median": _quantile(steps, 0.5),
+            "steps p90": _quantile(steps, 0.9), "longest median": _quantile(longest, 0.5),
+            "longest p90": _quantile(longest, 0.9),
+            "mean lane median": _quantile(mean, 0.5),
+            "lane visits a step": float(visits.sum() / steps.sum())}
+
+
 def k5_bound(bvh, planes, n, any_hit, result):
     """(bound ms, bound by, row tests, node visits, bytes) of one K5 launch,
     from the work this run's rays need: the plain walk again, a closest-hit
@@ -1450,7 +1487,7 @@ def lbvh_phase(device, totals):
         init_frame,
         render_frames_counted,
     )
-    from raytracerfacility_tpu_torch.ops import traverse
+    from raytracerfacility_tpu_torch.ops import brute, traverse
     from raytracerfacility_tpu_torch.ops.bvh import build_bvh
     from raytracerfacility_tpu_torch.scenes import canopy_scene, strands_scene
 
@@ -1607,6 +1644,17 @@ def lbvh_phase(device, totals):
         work = {"node visits a ray": float(res[2][0].double().mean()),
                 "row tests a ray": float(res[2][1].double().mean()),
                 "floor node visits a ray": visits / n, "floor row tests a ray": tests / n}
+        if any_hit:
+            union = warp_union(walker.bvh, torch.stack(planes), n,
+                               planes[7] != brute.DEAD)
+            print(f"  {name}: a warp with a live lane ({union['warps']}) walking "
+                  f"uniformly (the skip walk's replay): steps (the union of its "
+                  f"lanes' walks) median {union['steps median']:.0f}, p90 "
+                  f"{union['steps p90']:.0f}; its longest lane's visits median "
+                  f"{union['longest median']:.0f}, p90 {union['longest p90']:.0f}; "
+                  f"its mean lane's median {union['mean lane median']:.2f}; lane "
+                  f"visits a step {union['lane visits a step']:.3f}")
+            work["uniform warps"] = union
         rows[name] = ((err, ms, plain_ms, b, by), work)
     return rows, k1_c6
 
@@ -1692,6 +1740,26 @@ def _per_call_ms(fn, calls=10, reps=5):
     when each call enqueues faster than the device runs it."""
     ms, times = _median_ms(lambda: [fn() for _ in range(calls)], reps)
     return ms / calls, [t / calls for t in times]
+
+
+def _device_ms(fn, calls=10):
+    """Device time of a call of ``fn()`` whose launches are shorter than
+    its host work: ``calls`` calls enqueued behind a sleep of the device
+    (``torch.cuda._sleep``), so they run back to back, timed with CUDA
+    events recorded after the sleep; the mean a call."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(20_000_000)  # about 10 ms: every call queues behind it
+    start.record()
+    for _ in range(calls):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / calls
 
 
 def time_k6(launch, what):
@@ -2167,6 +2235,8 @@ def _family(name):
         return "K1 seg_segment_kernel"
     if "miss_radiance_kernel" in name:
         return "miss_radiance_kernel"
+    if "miss_compact_kernel" in name:
+        return "miss_compact_kernel"
     if "fused_sls_kernel" in name:
         return "K2-SLS fused_sls_kernel"
     if "fused_path_kernel" in name:
@@ -2310,6 +2380,9 @@ MISS_RTOL, MISS_ATOL = 1e-5, 1e-7
 # sample; of a cubemap fetch a missed ray
 SKY_OPS = (111, 102, 29)
 CUBE_OPS = 120
+# the kernels of a miss hook call, and of a K1-env segment with its hook
+ENV_MISS_KERNELS = {"miss_compact_kernel": None, "miss_radiance_kernel": None}
+ENV_KERNELS = {"seg_segment_kernel<miss>": None, **ENV_MISS_KERNELS}
 
 
 @contextlib.contextmanager
@@ -2359,16 +2432,16 @@ def capture_env(k1_launches, miss_calls):
 
 
 def miss_bound(call, misses):
-    """(bound ms, what bounds it) of one miss-kernel launch: the miss plane
-    of every lane, the origin, direction, throughput and radiance of each
-    missed ray read once, its radiance (and light) written once, a cubemap
-    fetch's four texels; the sky's operations or the fetch's."""
+    """(bound ms, what bounds it) of one radiance pass: the list entry, the
+    origin, direction, throughput and radiance of each missed ray read
+    once, its radiance (and light) written once, a cubemap fetch's four
+    texels; the sky's operations or the fetch's. (The compaction pass's
+    bound counts the miss plane in and the list out.)"""
     from raytracerfacility_tpu_torch.enums import EnvironmentalLightingType
 
-    n = call["miss"].shape[0]
     sky = (EnvironmentalLightingType(call["lighting"])
            == EnvironmentalLightingType.SKYDOME)
-    nbytes = 4 * n + 4 * misses * (12 + 3 + (3 if call["out"] else 0))
+    nbytes = 4 * misses * (1 + 12 + 3 + (3 if call["out"] else 0))
     if sky:
         per_ray, per_view, per_light = SKY_OPS
         ops = misses * (per_ray + call["samples"] * (
@@ -2381,10 +2454,12 @@ def miss_bound(call, misses):
 
 
 def check_miss(call, what, timed=False):
-    """The miss kernel on one captured call against its plain version:
-    radiance and light within MISS_ATOL + MISS_RTOL * |plain| on every
-    missed ray, every other ray untouched. Returns (missed rays, max |d|,
-    plain ms, and with ``timed`` the kernel's median ms of 5 and its bound)."""
+    """The miss kernels on one captured call against their plain version:
+    the compaction pass lists exactly the missed lanes (its count on the
+    device equal to the missed rays); radiance and light within MISS_ATOL +
+    MISS_RTOL * |plain| on every missed ray, every other ray untouched.
+    Returns (missed rays, max |d|, plain ms, and with ``timed`` the
+    hook's median ms of 5 (both launches) and the radiance pass's bound)."""
     import torch
 
     from raytracerfacility_tpu_torch.ops import environment
@@ -2404,6 +2479,12 @@ def check_miss(call, what, timed=False):
     end.synchronize()
     m = miss > 0
     misses = int(m.sum())
+    listed, count = environment.compact_misses(miss)
+    compacted = int(count[0])
+    if not (compacted == misses and torch.equal(
+            torch.sort(listed[:compacted].long())[0], torch.nonzero(m)[:, 0])):
+        raise AssertionError(f"miss kernel {what}: the compaction listed {compacted} "
+                             f"lanes, not the {misses} missed")
     pairs = [(rad_k, rad_p)] + ([(out_k, out_p)] if call["out"] else [])
     err = 0.0
     for k, p in pairs:
@@ -2415,17 +2496,39 @@ def check_miss(call, what, timed=False):
     if not (torch.equal(rad_k[:, ~m], call["radiance"][:, ~m])
             and (out_k is None or bool((out_k[:, ~m] == -1.0).all()))):
         raise AssertionError(f"miss kernel {what}: a ray that did not miss changed")
-    line = (f"  miss kernel {what}: {n} lanes, {misses} missed, max |d| {err:.3g} "
-            f"against the plain version ({start.elapsed_time(end):.3f} ms)")
+    line = (f"  miss kernel {what}: {n} lanes, {misses} missed, {compacted} "
+            f"compacted, max |d| {err:.3g} against the plain version "
+            f"({start.elapsed_time(end):.3f} ms)")
     if not timed:
         print(line)
         return misses, err, start.elapsed_time(end)
-    ms, times = _median_ms(lambda: environment.miss_radiance(st, rad_k, miss, *args,
-                                                             out=out_k))
+    hook_ms, hook_times = _median_ms(lambda: environment.miss_radiance(
+        st, rad_k, miss, *args, out=out_k))
+    mode = environment._mode(call["env"], call["lighting"])
+    cubemap = call["env"].cubemap if mode == environment.MODE_CUBEMAP else None
+    params = environment.env_params(call["env"])
+    ms, times = _median_ms(lambda: environment._launch_radiance(
+        st, rad_k, listed, count, n, params, cubemap, mode, call["samples"],
+        call["samples_light"], out_k))
     bnd, by = miss_bound(call, misses)
-    print(f"{line}; kernel median of 5 {ms:.4f} ms "
-          f"({', '.join(f'{t:.4f}' for t in times)}), bound {bnd:.4f} ms by {by}")
-    return misses, err, start.elapsed_time(end), ms, bnd, by
+    c_ms = _device_ms(lambda: environment.compact_misses(miss))
+    c_call_ms, _ = _median_ms(lambda: environment.compact_misses(miss))
+    c_plain_ms, _ = _median_ms(lambda: environment._compact_misses_plain(miss))
+    if not torch.equal(torch.nonzero(miss)[:, 0], torch.nonzero(m)[:, 0]):
+        raise AssertionError(f"miss kernel {what}: the miss plane is not 0 or 1")
+    c_lib_ms, _ = _median_ms(lambda: torch.nonzero(miss))
+    c_bnd = 4 * (n + misses + 1) / PEAK_BYTES * 1e3
+    print(f"{line}; the hook (both launches) median of 5 {hook_ms:.4f} ms "
+          f"({', '.join(f'{t:.4f}' for t in hook_times)}); the radiance pass "
+          f"{ms:.4f} ms ({', '.join(f'{t:.4f}' for t in times)}), bound {bnd:.4f} "
+          f"ms by {by}; the compaction pass {c_ms:.4f} ms on the device (ten "
+          f"calls queued behind a sleep; a call alone {c_call_ms:.4f} ms), plain "
+          f"{c_plain_ms:.4f}, torch.nonzero {c_lib_ms:.4f}, bound {c_bnd:.4f} ms "
+          f"by bytes")
+    compact = dict(ms=c_ms, call_ms=c_call_ms, plain_ms=c_plain_ms, bound_ms=c_bnd,
+                   bound_by="bytes", library_ms=c_lib_ms)
+    return (misses, err, start.elapsed_time(end), ms, bnd, by,
+            dict(hook_ms=hook_ms, compact=compact))
 
 
 def env_frame_phase(device, totals, what, compiled, bvh_compiled, cam_s, props,
@@ -2436,8 +2539,9 @@ def env_frame_phase(device, totals, what, compiled, bvh_compiled, cam_s, props,
     ray (miss plane included), every miss-kernel launch against its plain
     version, the missed rays a segment, the frame against the wavefront
     engine on the LBVH (K5 and the miss kernel) at the colour and AOV
-    gates, and Mrays/s (median of 3 warm calls). Returns (K1-env launches,
-    miss calls, max |d| of K1-env, of the miss kernel)."""
+    gates, Mrays/s (median of 3 warm calls) and the device time of one
+    more call by kernel family (``torch.profiler``). Returns (the miss
+    calls, max |d| of K1-env, of the miss kernel)."""
     import torch
 
     from raytracerfacility_tpu_torch.models.pathtracer import (
@@ -2457,10 +2561,10 @@ def env_frame_phase(device, totals, what, compiled, bvh_compiled, cam_s, props,
     k1_launches, miss_calls = [], []
     with capture_env(k1_launches, miss_calls):
         (frame, rays), launches = counted(
-            render, {"seg_segment_kernel<miss>": None, "miss_radiance_kernel": None},
-            totals)
-    if launches["seg_segment_kernel<miss>"] != launches["miss_radiance_kernel"]:
-        raise AssertionError(f"{what}: not one miss kernel a K1-env launch: {launches}")
+            render, dict(ENV_KERNELS), totals)
+    if not (launches["seg_segment_kernel<miss>"] == launches["miss_compact_kernel"]
+            == launches["miss_radiance_kernel"]):
+        raise AssertionError(f"{what}: not one compaction and one radiance pass a K1-env launch: {launches}")
     per_seg = [int((c["miss"] > 0).sum()) for c in miss_calls]
     print(f"  {what}: {WIDTH}x{HEIGHT} {BOUNCES} bounces {ENV_FRAMES} frames: "
           f"{int(rays)} live rays, launches {launches}; missed rays a segment "
@@ -2479,7 +2583,7 @@ def env_frame_phase(device, totals, what, compiled, bvh_compiled, cam_s, props,
         miss_err = max(miss_err, check_miss(call, f"{what} launch {i}")[1])
     (wave, wave_rays), launches = counted(
         lambda: render(bvh_compiled),
-        {"bvh_trace_kernel<false>": None, "miss_radiance_kernel": None}, totals)
+        {"bvh_trace_kernel<false>": None, **ENV_MISS_KERNELS}, totals)
     print(f"  {what} on the wavefront engine (LBVH): {int(wave_rays)} live rays, "
           f"launches {launches}")
     _check_color(frame.color, wave.color, f"{what} K1-env engine vs wavefront colour")
@@ -2492,15 +2596,125 @@ def env_frame_phase(device, totals, what, compiled, bvh_compiled, cam_s, props,
     print(f"  {what} warm, {len(walls)} runs {', '.join(f'{w:.4f}' for w in walls)} "
           f"s; median {med:.4f} s: {ENV_FRAMES / med:.3f} frames/s, "
           f"{n / med / 1e6:.3f} Mrays/s ({n} live rays)")
+    wall_ms, busy_ms, _, fam = profile_call(render)
+    print_profile(f"{what} 1080p call ({ENV_FRAMES} frames)", wall_ms, busy_ms, fam, med)
     return miss_calls, k1_err, miss_err
 
 
+# K1-env's segment 0 with primary misses (phase 25): config 6's canopy,
+# whose camera's top rows look about 10 degrees above the horizon, under
+# the sky at the LBVH phases' size; K1-env's plain version on every
+# PRIMARY_MISS_STRIDE-th warp of segment 0 (2,048 rays) and every
+# C6_K1_STRIDE-th of the later segments (on all 524,288 rays of the
+# 1,038,338-row bake it would take about 40 minutes)
+PRIMARY_MISS_STRIDE = 256
+
+
+def primary_miss_phase(device, totals, sky, sky_type):
+    """Config 6's canopy at 512x512, 2 bounces, 2 pooled frames under the
+    sky on the segmented engine (packed tables: K1-env and the miss hook),
+    counted; every K1-env launch against its plain version on a stride of
+    warps (the miss plane and, in segment 0, the AOVs included), every
+    miss call against its plain version; segment 0 must have missed rays;
+    the frame's colour and AOVs (segment 0's albedo among them) against
+    the ``build_bvh=True`` wavefront frame (K5 and the miss kernel) at the
+    gates of phases 21-22; K1-env's time and bound on segment 0. Returns
+    (K1-env max |d|, miss max |d|, segment 0's numbers)."""
+    import torch
+
+    from raytracerfacility_tpu_torch.models.pathtracer import (
+        RenderConfig,
+        init_frame,
+        render_frames_counted,
+    )
+    from raytracerfacility_tpu_torch.ops import seg
+    from raytracerfacility_tpu_torch.ops.fused import ACT
+    from raytracerfacility_tpu_torch.scenes import canopy_scene
+
+    scene, cam, _ = canopy_scene(C6, C6)
+    packed = scene.build(device)
+    cam_s, env_s = cam.state(device), sky.state(device)
+    cfg = RenderConfig(width=C6, height=C6, bounces=C6_BOUNCES, lighting_type=sky_type)
+
+    def render(compiled):
+        return render_frames_counted(compiled, cam_s, env_s, cfg,
+                                     init_frame(C6, C6, device), C6_FRAMES)
+
+    k1_launches, miss_calls = [], []
+    with capture_env(k1_launches, miss_calls):
+        (frame, rays), launches = counted(lambda: render(packed), dict(ENV_KERNELS),
+                                          totals)
+    if not (launches["seg_segment_kernel<miss>"] == launches["miss_compact_kernel"]
+            == launches["miss_radiance_kernel"]):
+        raise AssertionError(f"config 6 sky: not one compaction and one radiance pass a K1-env launch: "
+                             f"{launches}")
+    per_seg = [int((c["miss"] > 0).sum()) for c in miss_calls]
+    print(f"  config 6 under the sky, {C6}x{C6} {C6_BOUNCES} bounces {C6_FRAMES} "
+          f"pooled frames: {int(rays)} live rays, launches {launches}; missed rays "
+          f"a segment {per_seg}; segment 0 (the camera rays): {per_seg[0]} of "
+          f"{miss_calls[0]['miss'].shape[0]} missed")
+    if not (per_seg[0] > 0 and miss_calls[0]["out"]
+            and bool(torch.isfinite(frame.color).all())
+            and float(frame.color[..., :3].std()) > 0.01):
+        raise AssertionError("config 6 sky: no primary ray missed, or the frame is "
+                             "not finite and varied")
+    tables, env0, st0, rng0, n0, _, has_cont, chunk = k1_launches[0]
+    miss0 = torch.empty(n0, device=device)
+    ms, times = _median_ms(lambda: seg.segment(tables, env0, st0.clone(), rng0.clone(),
+                                               n0, True, has_cont, chunk, miss=miss0))
+    # 14 planes in (13 state + rng), 14 out, 9 AOV planes and the miss plane out
+    bnd, by, tri, _ = k1_bound(k1_launches[0], packed.pallas_tris, 28 + 9 + 1,
+                               "config 6 sky segment 0")
+    print(f"  K1-env config 6 sky segment 0 at {n0} rays: kernel median of 5 "
+          f"{ms:.3f} ms ({', '.join(f'{t:.3f}' for t in times)}); {tri} triangle "
+          f"tests after culling, bound {bnd:.4f} ms by {by}")
+    seg0 = dict(rays=n0, missed=per_seg[0], ms=ms, bound_ms=bnd, bound_by=by)
+    k1_err = 0.0
+    for i, launch in enumerate(k1_launches):
+        n, first = launch[4], launch[5]
+        stride = PRIMARY_MISS_STRIDE if first else C6_K1_STRIDE
+        check = (torch.arange(0, -(-n // 32), stride, device=device)[:, None] * 32
+                 + torch.arange(32, device=device)).reshape(-1)
+        check = check[check < n]
+        err, _, (st_k, _) = check_k1_launch(launch, check, f"config 6 sky launch {i}",
+                                            miss=True)
+        k1_err = max(k1_err, err)
+        if first:  # the checked camera rays that missed: no longer active
+            missed = miss_calls[0]["miss"][check] > 0
+            print(f"    segment 0: {int(missed.sum())} of the {check.numel()} checked "
+                  f"rays missed, {int((st_k[ACT, check][missed] > 0).sum())} of them "
+                  f"still active")
+            if not bool(missed.any()) or bool((st_k[ACT, check][missed] > 0).any()):
+                raise AssertionError("config 6 sky: no checked primary miss, or a "
+                                     "missed ray stayed active")
+    k1_launches.clear()
+    miss_err = 0.0
+    for i, call in enumerate(miss_calls):
+        miss_err = max(miss_err, check_miss(call, f"config 6 sky launch {i}")[1])
+    del miss_calls
+    walker = scene.build(device, build_bvh=True)
+    (wave, wave_rays), launches = counted(
+        lambda: render(walker), {"bvh_trace_kernel<false>": None, **ENV_MISS_KERNELS},
+        totals)
+    print(f"  config 6 under the sky on the wavefront engine (LBVH): "
+          f"{int(wave_rays)} live rays, launches {launches}")
+    _check_color(frame.color, wave.color, "config 6 sky K1-env engine vs wavefront "
+                 "colour")
+    for name in ("albedo", "normal"):
+        q = _check_aov(getattr(frame, name), getattr(wave, name), f"config 6 sky {name}")
+        print(f"  {name}: |d| p99.9 {q:.3g}")
+    if abs(int(rays) - int(wave_rays)) > max(2, 1e-3 * int(wave_rays)):
+        raise AssertionError("config 6 sky: the engines disagree on live rays")
+    return k1_err, miss_err, seg0
+
+
 def environment_phase(device, totals, compiled, cam_s, c7, c7_cam_s):
-    """Phases 21-24: the sky and the cubemap at 1080p (K1-env and the miss
+    """Phases 21-25: the sky and the cubemap at 1080p (K1-env and the miss
     kernel; K1-env's time and bound on the sky's first launch), config 4
     under the sky (presorted segmented engine against the walker), config
-    7's strands under the sky (K3 and the miss kernel). Returns the K1-env
-    and miss-kernel rows' numbers."""
+    7's strands under the sky (K3 and the miss kernel), config 6 under the
+    sky (K1-env's segment 0 with primary misses). Returns the K1-env and
+    miss-kernel rows' numbers."""
     import numpy as np
     import torch
 
@@ -2558,11 +2772,11 @@ def environment_phase(device, totals, compiled, cam_s, c7, c7_cam_s):
                      bound_by=k1_by, rays=n)
     # the miss kernel's time on the sky launch with the most missed rays
     top = max(range(len(sky_calls)), key=lambda i: int((sky_calls[i]["miss"] > 0).sum()))
-    m, _, plain_ms, ms, bnd, by = check_miss(sky_calls[top], f"sky launch {top} (timed)",
-                                             timed=True)
+    m, _, plain_ms, ms, bnd, by, more = check_miss(
+        sky_calls[top], f"sky launch {top} (timed)", timed=True)
     out["miss"]["1080p sky"] = dict(launch=top, lanes=sky_calls[top]["miss"].shape[0],
                                     missed=m, ms=ms, plain_ms=plain_ms, bound_ms=bnd,
-                                    bound_by=by)
+                                    bound_by=by, **more)
     del sky_calls
 
     print("phase 22: a seeded 512x512-a-face cubemap at 1080p")
@@ -2571,11 +2785,11 @@ def environment_phase(device, totals, compiled, cam_s, c7, c7_cam_s):
         EnvironmentalLightingType.SCENE)
     k1_err, miss_err = max(k1_err, err), max(miss_err, merr)
     top = max(range(len(cube_calls)), key=lambda i: int((cube_calls[i]["miss"] > 0).sum()))
-    m, _, plain_ms, ms, bnd, by = check_miss(cube_calls[top],
-                                             f"cubemap launch {top} (timed)", timed=True)
+    m, _, plain_ms, ms, bnd, by, more = check_miss(
+        cube_calls[top], f"cubemap launch {top} (timed)", timed=True)
     out["miss"]["1080p cubemap"] = dict(launch=top, lanes=cube_calls[top]["miss"].shape[0],
                                         missed=m, ms=ms, plain_ms=plain_ms,
-                                        bound_ms=bnd, bound_by=by)
+                                        bound_ms=bnd, bound_by=by, **more)
     del cube_calls, bvh_compiled
 
     print("phase 23: config 4 under the sky (presorted segmented engine, the "
@@ -2590,26 +2804,27 @@ def environment_phase(device, totals, compiled, cam_s, c7, c7_cam_s):
     with capture_env([], c4_calls):
         (res, rays), launches = counted(
             lambda: estimate_illumination_counted(c4, env_s, cfg, probes, seed=C4_SEED),
-            {"seg_segment_kernel<miss>": None, "miss_radiance_kernel": None}, totals)
+            dict(ENV_KERNELS), totals)
     print(f"  {probes.num_probes} probes, {2 * probes.num_probes} probe rays: "
           f"{int(rays)} live rays, launches {launches}; missed rays a segment "
           f"{[int((c['miss'] > 0).sum()) for c in c4_calls]}")
-    if launches["seg_segment_kernel<miss>"] != launches["miss_radiance_kernel"]:
-        raise AssertionError("config 4 sky: not one miss kernel a K1-env launch")
+    if not (launches["seg_segment_kernel<miss>"] == launches["miss_compact_kernel"]
+            == launches["miss_radiance_kernel"]):
+        raise AssertionError("config 4 sky: not one compaction and one radiance pass a K1-env launch")
     for i, call in enumerate(c4_calls):
         if i:
             miss_err = max(miss_err, check_miss(call, f"config 4 launch {i}")[1])
-    m, err, plain_ms, ms, bnd, by = check_miss(c4_calls[0], "config 4 launch 0 (timed)",
-                                               timed=True)
+    m, err, plain_ms, ms, bnd, by, more = check_miss(
+        c4_calls[0], "config 4 launch 0 (timed)", timed=True)
     miss_err = max(miss_err, err)
     out["miss"]["config 4 sky segment 0"] = dict(
         lanes=c4_calls[0]["miss"].shape[0], missed=m, ms=ms, plain_ms=plain_ms,
-        bound_ms=bnd, bound_by=by)
+        bound_ms=bnd, bound_by=by, **more)
     del c4_calls
     c4b = scene.build(device, build_bvh=True)
     (res_b, rays_b), launches = counted(
         lambda: estimate_illumination_counted(c4b, env_s, cfg, probes, seed=C4_SEED),
-        {"bvh_trace_kernel<false>": None, "miss_radiance_kernel": None}, totals)
+        {"bvh_trace_kernel<false>": None, **ENV_MISS_KERNELS}, totals)
     d = (res.energy.double() - res_b.energy.double()).abs()
     dd = (res.direction.double() - res_b.direction.double()).abs()
     print(f"  on the walker: {int(rays_b)} live rays, launches {launches}; energy "
@@ -2639,7 +2854,7 @@ def environment_phase(device, totals, compiled, cam_s, c7, c7_cam_s):
         (frame, rays), launches = counted(
             lambda: render_frames_counted(c7, c7_cam_s, env_s, c7_config,
                                           init_frame(C7, C7, device), ENV_FRAMES),
-            {"brute_trace_kernel<false>": None, "miss_radiance_kernel": None}, totals)
+            {"brute_trace_kernel<false>": None, **ENV_MISS_KERNELS}, totals)
     print(f"  {C7}x{C7} {C7_BOUNCES} bounces {ENV_FRAMES} pooled frames: {int(rays)} "
           f"live rays, launches {launches}; colour mean "
           f"{float(frame.color[..., :3].mean()):.4f}")
@@ -2648,8 +2863,13 @@ def environment_phase(device, totals, compiled, cam_s, c7, c7_cam_s):
         raise AssertionError("config 7 sky: the frame is not finite and non-zero")
     for i, call in enumerate(c7_calls):
         miss_err = max(miss_err, check_miss(call, f"config 7 launch {i}")[1])
-    out["k1"]["err"] = k1_err
-    out["miss_err"] = miss_err
+
+    print("phase 25: config 6's canopy under the sky: K1-env's segment 0 with "
+          "primary misses")
+    err, merr, out["k1"]["config 6 sky segment 0"] = primary_miss_phase(
+        device, totals, sky, sky_type)
+    out["k1"]["err"] = max(k1_err, err)
+    out["miss_err"] = max(miss_err, merr)
     return out
 
 
@@ -3101,6 +3321,7 @@ def main() -> int:
                  *(envr["k1"][k] for k in ("err", "ms", "plain_ms", "bound_ms",
                                            "bound_by"))),
              shape=f"1080p sky segment 0, {envr['k1']['rays']} rays",
+             config_6_sky_segment_0=envr["k1"]["config 6 sky segment 0"],
              ptxas=[ptxas.get(f"seg_segment_kernel<{b}, true>")
                     for b in ("false", "true")]),
         dict(row("miss_radiance_kernel", "env.cu",
@@ -3114,6 +3335,16 @@ def main() -> int:
                     f"{envr['miss']['1080p sky']['lanes']} lanes)"),
              shapes=envr["miss"],
              ptxas=[ptxas.get(f"miss_radiance_kernel<{m}>") for m in (1, 2)]),
+        dict(row("miss_compact_kernel", "env.cu",
+                 "none: the miss kernel's list of missed lanes (the reference "
+                 "selects the misses in XLA, pallas_seg.py:1035-1060)", 0,
+                 *(envr["miss"]["1080p sky"]["compact"][k]
+                   for k in ("ms", "plain_ms", "bound_ms", "bound_by"))),
+             library_ms=envr["miss"]["1080p sky"]["compact"]["library_ms"],
+             shape=(f"1080p sky, the launch with the most missed rays, "
+                    f"{envr['miss']['1080p sky']['lanes']} lanes; library_ms: "
+                    "torch.nonzero of the miss plane"),
+             ptxas=ptxas.get("miss_compact_kernel")),
         dict(row("fused_path_kernel", "path.cu",
                  "raytracerfacility_tpu/ops/pallas_fused.py:217",
                  max(k2_err, c5_k2["max_abs_err"]), k2_ms, k2_plain_ms, k2_bound,

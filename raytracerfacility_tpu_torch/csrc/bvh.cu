@@ -36,10 +36,19 @@
 // reference's, so the same leaves are reachable.
 //
 // Occlusion: any_walk follows the reference's order, node for node
-// (box entered -> node + 1, else -> skip[node]), stackless, and stops at
-// the first accepted row; ops/traverse.py::_walk_plain is its replay.
-// Near first saves a shadow ray no visits, and its stack and wider loads
-// made this kernel slower on config 6's shadow rays.
+// (box entered -> node + 1, else -> skip[node]), stackless, one thread a
+// ray, and stops at the first accepted row; ops/traverse.py::_walk_plain
+// is its replay. Two other orders lost on config 6's shadow rays (524,288
+// lanes) on an H100. Near first saves a shadow ray no visits (130 against
+// 126), and its stack and wider loads made the kernel slower. A walk
+// uniform across the warp (the warp takes the lowest next node of its
+// lanes, loads it once, and only the lanes standing on it test it; a skip
+// walk moves only forward in preorder, so each lane keeps its own visits)
+// cuts the node loads 4.9-fold, but a warp then steps once a node of the
+// union of its lanes' walks, a median 757 steps against 285 visits of its
+// longest lane, each step a dependent load: 1.48 ms against 0.51-0.55 for
+// this walk, whose lanes keep up to 32 independent loads in flight.
+// _walk_plain(..., warp_steps=True) replays the union's steps.
 //
 // With stats a thread counts node box tests (its "node visits": 1 + 2 per
 // internal node entered near first, one a step on the skip walk) and row

@@ -44,7 +44,8 @@ LAUNCHES = {"seg_segment_kernel": 0, "seg_segment_kernel<miss>": 0,
             "fused_sls_kernel": 0, "brute_trace_kernel<false>": 0,
             "brute_trace_kernel<true>": 0, "inst_trace_kernel": 0,
             "bvh_trace_kernel<false>": 0, "bvh_trace_kernel<true>": 0,
-            "block_perm_kernel": 0, "miss_radiance_kernel": 0}
+            "block_perm_kernel": 0, "miss_compact_kernel": 0,
+            "miss_radiance_kernel": 0}
 
 _libs: dict = {}
 
@@ -119,7 +120,7 @@ _ARGTYPES = {
     "inst": {"rtf_inst_trace": (21, 5)},
     "bvh": {"rtf_bvh_trace": (13, 4)},
     "perm": {"rtf_block_perm": (7, 3)},
-    "env": {"rtf_miss_radiance": (6, 9)},
+    "env": {"rtf_miss_compact": (3, 1), "rtf_miss_radiance": (7, 9)},
 }
 
 

@@ -11,8 +11,9 @@ colour under SingleLightSource) and ``sun_cone_intensity``.
 
 :func:`miss_radiance` evaluates the environment on the rays of a path
 state that missed and adds ``throughput * light`` to their radiance in
-place: ``miss_radiance_kernel`` (``csrc/env.cu``) on the card, the torch
-functions of this module on the CPU. It replaces no TPU kernel: the
+place: ``miss_compact_kernel`` and ``miss_radiance_kernel``
+(``csrc/env.cu``) on the card, the torch functions of this module on the
+CPU. It replaces no TPU kernel: the
 reference computes the cubemap and the sky in XLA between its kernel
 launches (ref pallas_seg.py:1035-1060).
 
@@ -64,7 +65,7 @@ class AtmosphereState:
     g: torch.Tensor  # Mie mean cosine
 
     @classmethod
-    def default(cls, device="cpu") -> "AtmosphereState":
+    def default(cls, device) -> "AtmosphereState":
         def t(x):
             return torch.tensor(x, dtype=torch.float32, device=device)
 
@@ -87,9 +88,9 @@ class EnvironmentState:
     cubemap: torch.Tensor | None = None  # (6, H, W, 4) or None
 
     @classmethod
-    def default(cls, device="cpu", **overrides) -> "EnvironmentState":
-        """The reference's defaults (ref environment.py:73-87), with any
-        field replaced by ``overrides``."""
+    def default(cls, device, **overrides) -> "EnvironmentState":
+        """The reference's defaults (ref environment.py:73-87) on
+        ``device``, with any field replaced by ``overrides``."""
         def t(x):
             return torch.tensor(x, dtype=torch.float32, device=device)
 
@@ -163,15 +164,21 @@ def _norm(p):
     return torch.sqrt(_dot(p, p))
 
 
-def nishita_sky(position, ray_dir, env: EnvironmentState, num_samples: int = 16,
-                num_samples_light: int = 8) -> torch.Tensor:
-    """Single-scattering sky radiance along ``ray_dir`` (..., 3) from
-    ``position`` (ref Environment.cuh:75-145, environment.py:143-227).
-    Returns (..., 3). Every sum runs in sample order."""
+def _nishita_terms(position, ray_dir, env: EnvironmentState, num_samples: int,
+                   num_samples_light: int):
+    """The terms of :func:`nishita_sky` before its sums over the view
+    samples: (valid (...), the Rayleigh and Mie phases (...), the view
+    samples' density weights hr_i and hm_i (..., S), their light marches'
+    optical depths (sum of the light samples' densities times the light
+    segment, (..., S) each), and whether every light sample of a view
+    sample lies at or above the ground (..., S))."""
     atm = env.atmosphere
     earth_radius = atm.earth_radius * 1000.0
     atmosphere_radius = atm.atmosphere_radius * 1000.0
-    hr, hm, g = atm.hr, atm.hm, atm.g
+    # the scale heights divide as products with their reciprocals, taken
+    # once (the kernel's parameters carry them): 18 divisions fewer a view
+    # sample
+    inv_hr, inv_hm, g = 1.0 / atm.hr, 1.0 / atm.hm, atm.g
     sun = env.sun_direction
     dev = ray_dir.device
     f32 = torch.float32
@@ -194,17 +201,8 @@ def nishita_sky(position, ray_dir, env: EnvironmentState, num_samples: int = 16,
     sample_pos = orig[..., None, :] + t_mid[..., None] * ray_dir[..., None, :]
     height = _norm(sample_pos) - earth_radius
     seg = seg_len[..., None]
-    hr_i = torch.exp(torch.clamp(-height / hr, max=_EXP_CLAMP)) * seg
-    hm_i = torch.exp(torch.clamp(-height / hm, max=_EXP_CLAMP)) * seg
-    optical_r = torch.empty_like(hr_i)
-    optical_m = torch.empty_like(hm_i)
-    acc_r = torch.zeros_like(hr_i[..., 0])
-    acc_m = torch.zeros_like(hm_i[..., 0])
-    for s in range(num_samples):  # inclusive running sums
-        acc_r = acc_r + hr_i[..., s]
-        acc_m = acc_m + hm_i[..., s]
-        optical_r[..., s] = acc_r
-        optical_m[..., s] = acc_m
+    hr_i = torch.exp(torch.clamp(-height * inv_hr, max=_EXP_CLAMP)) * seg
+    hm_i = torch.exp(torch.clamp(-height * inv_hm, max=_EXP_CLAMP)) * seg
 
     # light march from each view sample toward the sun (..., S, L)
     _, _, t1_light = _ray_sphere_both(sample_pos, sun.expand_as(sample_pos),
@@ -215,14 +213,34 @@ def nishita_sky(position, ray_dir, env: EnvironmentState, num_samples: int = 16,
     light_pos = sample_pos[..., None, :] + tl_mid[..., None] * sun
     height_light = _norm(light_pos) - earth_radius
     light_valid = torch.all(height_light >= 0.0, dim=-1)
-    e_r = torch.exp(torch.clamp(-height_light / hr, max=_EXP_CLAMP))
-    e_m = torch.exp(torch.clamp(-height_light / hm, max=_EXP_CLAMP))
+    e_r = torch.exp(torch.clamp(-height_light * inv_hr, max=_EXP_CLAMP))
+    e_m = torch.exp(torch.clamp(-height_light * inv_hm, max=_EXP_CLAMP))
     sum_lr, sum_lm = e_r[..., 0], e_m[..., 0]
     for k in range(1, num_samples_light):
         sum_lr = sum_lr + e_r[..., k]
         sum_lm = sum_lm + e_m[..., k]
-    od_r = optical_r + sum_lr * seg_light
-    od_m = optical_m + sum_lm * seg_light
+    return (valid, phase_r, phase_m, hr_i, hm_i, sum_lr * seg_light,
+            sum_lm * seg_light, light_valid)
+
+
+def nishita_sky(position, ray_dir, env: EnvironmentState, num_samples: int = 16,
+                num_samples_light: int = 8) -> torch.Tensor:
+    """Single-scattering sky radiance along ``ray_dir`` (..., 3) from
+    ``position`` (ref Environment.cuh:75-145, environment.py:143-227).
+    Returns (..., 3). Every sum runs in sample order."""
+    valid, phase_r, phase_m, hr_i, hm_i, light_r, light_m, light_valid = (
+        _nishita_terms(position, ray_dir, env, num_samples, num_samples_light))
+    optical_r = torch.empty_like(hr_i)
+    optical_m = torch.empty_like(hm_i)
+    acc_r = torch.zeros_like(hr_i[..., 0])
+    acc_m = torch.zeros_like(hm_i[..., 0])
+    for s in range(num_samples):  # inclusive running sums
+        acc_r = acc_r + hr_i[..., s]
+        acc_m = acc_m + hm_i[..., s]
+        optical_r[..., s] = acc_r
+        optical_m[..., s] = acc_m
+    od_r = optical_r + light_r
+    od_m = optical_m + light_m
 
     out = []
     for c in range(3):
@@ -284,7 +302,7 @@ def sun_cone_intensity(env: EnvironmentState, sun_sample_dir) -> torch.Tensor:
 
 
 # --------------------------------------------------------------------------
-# the miss radiance of a path state: miss_radiance_kernel and its plain version
+# the miss radiance of a path state: the miss kernels and their plain version
 # --------------------------------------------------------------------------
 
 # path-state planes the miss radiance reads (ops/fused.py OX ... TB)
@@ -293,6 +311,8 @@ _OX, _DX, _TR = 0, 3, 7
 MODE_CUBEMAP, MODE_SKY = 1, 2
 # entries of the kernel's parameter vector (csrc/env.cu Param)
 NPARAMS = 24
+# device -> the constant entries of env_params (and its zero padding)
+_PARAM_TAIL: dict = {}
 
 
 def _mode(env: EnvironmentState, lighting_type) -> int:
@@ -306,18 +326,24 @@ def _mode(env: EnvironmentState, lighting_type) -> int:
 def env_params(env: EnvironmentState) -> torch.Tensor:
     """(24,) float32 parameters of the kernel on the environment's device:
     skylight, 1 / gamma (rounded as :func:`inverse_gamma` rounds it),
-    colour rgb, sun direction xyz, earth and atmosphere radii (km), hr,
-    hm, g, then the constants of :func:`nishita_sky` as float32 rounds
+    colour rgb, sun direction xyz, earth and atmosphere radii (km), 1 / hr,
+    1 / hm, g, then the constants of :func:`nishita_sky` as float32 rounds
     them (Rayleigh betas, the Mie beta and extinction, the two phase
     factors, the far clamp and the exponent clamp), then zeros."""
     atm = env.atmosphere
     p = torch.stack([env.skylight_intensity, 1.0 / env.gamma, *env.color.unbind(),
                      *env.sun_direction.unbind(), atm.earth_radius,
-                     atm.atmosphere_radius, atm.hr, atm.hm, atm.g]).to(torch.float32)
-    consts = np.array([*_BETA_R, _BETA_M[0], _BETA_M_EXT[0], 3.0 / (16.0 * math.pi),
-                       3.0 / (8.0 * math.pi), _T_FAR, _EXP_CLAMP], np.float32)
-    consts = torch.tensor(consts, device=p.device)
-    return torch.cat([p, consts, p.new_zeros(NPARAMS - p.shape[0] - consts.shape[0])])
+                     atm.atmosphere_radius, 1.0 / atm.hr, 1.0 / atm.hm,
+                     atm.g]).to(torch.float32)
+    tail = _PARAM_TAIL.get(p.device)
+    if tail is None:  # copied to the device once: the hook runs every segment
+        consts = np.array([*_BETA_R, _BETA_M[0], _BETA_M_EXT[0],
+                           3.0 / (16.0 * math.pi), 3.0 / (8.0 * math.pi), _T_FAR,
+                           _EXP_CLAMP], np.float32)
+        consts = np.concatenate([consts, np.zeros(NPARAMS - p.shape[0] - consts.size,
+                                                  np.float32)])
+        tail = _PARAM_TAIL[p.device] = torch.tensor(consts, device=p.device)
+    return torch.cat([p, tail])
 
 
 def _miss_radiance_plain(state, radiance, miss, env, lighting_type, samples,
@@ -333,6 +359,41 @@ def _miss_radiance_plain(state, radiance, miss, env, lighting_type, samples,
         radiance[:, c] = radiance[:, c] + state[_TR:_TR + 3, c] * light
         if out is not None:
             out[:, c] = light
+
+
+def _compact_misses_plain(miss):
+    """Plain version of :func:`compact_misses`: the missed lanes in
+    order."""
+    n = miss.shape[0]
+    idx = torch.nonzero(miss > 0.0)[:, 0].to(torch.int32)
+    missed = torch.zeros((n,), dtype=torch.int32, device=miss.device)
+    missed[:idx.shape[0]] = idx
+    return missed, torch.tensor([idx.shape[0]], dtype=torch.int32, device=miss.device)
+
+
+def compact_misses(miss):
+    """The lanes i of a contiguous (n,) float32 miss plane with ``miss[i] >
+    0``: ((n,) int32, whose first ``count`` entries are those lanes; (1,)
+    int32 count), both on the plane's device. On the H100
+    ``miss_compact_kernel`` (``csrc/env.cu``) appends them with one atomic
+    add a block of 512 lanes, in no set order, and the count stays on the
+    device (the host reads neither); on the CPU the plain version lists
+    them in order."""
+    if miss.dim() != 1 or miss.dtype != torch.float32 or not miss.is_contiguous():
+        raise ValueError("compact_misses takes a contiguous (n,) float32 plane")
+    if miss.device.type == "cpu":
+        return _compact_misses_plain(miss)
+    if miss.device.type != "cuda":
+        raise ValueError(f"no kernel for device {miss.device}")
+    n = miss.shape[0]
+    missed = torch.empty((n,), dtype=torch.int32, device=miss.device)
+    count = torch.empty((1,), dtype=torch.int32, device=miss.device)
+    err = kernels.library("env").rtf_miss_compact(
+        miss.data_ptr(), missed.data_ptr(), count.data_ptr(), n,
+        ctypes.c_void_p(torch.cuda.current_stream(miss.device).cuda_stream))
+    kernels.LAUNCHES["miss_compact_kernel"] += 1
+    kernels.check(err, "miss_compact_kernel")
+    return missed, count
 
 
 def check_miss_inputs(state, radiance, miss, out, cubemap, device) -> None:
@@ -379,12 +440,16 @@ def miss_radiance(state, radiance, miss, env: EnvironmentState, lighting_type,
     (``ops/texture.py:94 sample_cubemap``) and the sky
     (``ops/environment.py:143 nishita_sky``) for every ray in XLA and
     selects the misses (ref pallas_seg.py:1035-1060, pathtracer.py:326-333).
-    On the H100, ``miss_radiance_kernel`` (``csrc/env.cu``) runs one thread
-    a ray and returns at once on a ray that did not miss. The sky is bound
-    by its operations (the march of 16 view samples of 8 light samples
-    each, 336 exponentials a ray), which run in registers with no
-    intermediate in device memory; a cubemap fetch by its bytes (four
-    texels a ray)."""
+    On the H100 two launches (``csrc/env.cu``): :func:`compact_misses`
+    lists the missed lanes and their count in device memory, then
+    ``miss_radiance_kernel`` runs over that list alone on a grid that fills
+    the card, with no host read between them. The sky is bound by its
+    operations (the march of 16 view samples of 8 light samples each, 336
+    exponentials a ray); it takes 16 lanes a missed ray, one view sample a
+    lane, which pass the running optical depths from lane to lane and
+    gather the weights in sample order through shared memory, and each
+    warp finishes its rays 32 at a time, one a lane. A cubemap fetch is
+    bound by its bytes (four texels a ray), one thread a missed ray."""
     mode = _mode(env, lighting_type)
     if miss.device.type == "cpu":
         _miss_radiance_plain(state, radiance, miss, env, lighting_type, samples,
@@ -403,13 +468,23 @@ def miss_radiance(state, radiance, miss, env: EnvironmentState, lighting_type,
     n = miss.shape[0]
     if n == 0:
         return
+    missed, count = compact_misses(miss)
+    _launch_radiance(state, radiance, missed, count, n, params, cubemap, mode,
+                     samples, samples_light, out)
+
+
+def _launch_radiance(state, radiance, missed, count, n, params, cubemap, mode,
+                     samples, samples_light, out):
+    """``miss_radiance_kernel`` over the lanes :func:`compact_misses`
+    listed (``count`` of at most ``n``), on inputs :func:`miss_radiance`
+    checked."""
     h, w = (cubemap.shape[1], cubemap.shape[2]) if cubemap is not None else (0, 0)
     err = kernels.library("env").rtf_miss_radiance(
-        state.data_ptr(), radiance.data_ptr(), miss.data_ptr(),
+        state.data_ptr(), radiance.data_ptr(), missed.data_ptr(), count.data_ptr(),
         out.data_ptr() if out is not None else None,
         cubemap.data_ptr() if cubemap is not None else None, params.data_ptr(),
         n, state.stride(0), radiance.stride(0),
         out.stride(0) if out is not None else 0, mode, samples, samples_light,
-        h, w, ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream))
+        h, w, ctypes.c_void_p(torch.cuda.current_stream(state.device).cuda_stream))
     kernels.LAUNCHES["miss_radiance_kernel"] += 1
     kernels.check(err, "miss_radiance_kernel")

@@ -25,8 +25,11 @@ most :data:`MAX_STEPS` node visits (the reference's while-loop bound).
 near first with a stack (``csrc/bvh.cu`` says why), the best-t cull padded
 by :data:`CULL_PAD`. Its closest hit is the reference's wherever a box's
 rounding does not decide a row. K5's any-hit walks the reference's order,
-so :func:`_walk_plain` is its replay. ``trace_collect_same_instance``
-serves subsurface only and is not ported.
+so :func:`_walk_plain` is its replay; with ``warp_steps`` it also counts
+the steps a walk uniform across each warp of 32 rays would take (the
+distinct nodes the warp's rays load), which ``chip_smoke.py`` reports
+beside the lanes' visits. ``trace_collect_same_instance`` serves
+subsurface only and is not ported.
 """
 
 from __future__ import annotations
@@ -49,6 +52,9 @@ from raytracerfacility_tpu_torch.ops.math3d import inv_dir, parallel_slabs
 MAX_STEPS = 8192  # node visits a ray may take (ref traverse.py:49-51)
 STACK = 64  # csrc/bvh.cu kStack: >= the radix tree's depth (ops/bvh.py)
 CULL_PAD = 1.0 / 512.0  # csrc/bvh.cu kNodePad
+WARP = 32  # rays of a warp (_walk_plain's warp_steps)
+# (warp, node) keys _walk_plain gathers before it drops repeats
+_UNIQUE_EVERY = 1 << 24
 _BIG = 3.4e38
 _START_MASK = (1 << 27) - 1
 
@@ -71,13 +77,17 @@ def _tri_test(rows, o, d, tmin, has_curves: bool):
 
 
 def _walk_plain(bvh: BVH, rays, n: int, any_hit: bool, stats: bool = False,
-                touched=None):
+                touched=None, warp_steps: bool = False):
     """The reference's skip-link walk (``rays`` the (8, n) planes): K5's
     any-hit replay, and the oracle K5's closest hit and
     :func:`_walk_ordered` are held to. All rays walk in
     lockstep, one node a step, as the reference's while-loop does; each step handles only the rays still walking, which
     changes no ray's arithmetic. ``touched``, a pair of bool tensors over
-    the node and row tables, is set where any ray loads a node or row."""
+    the node and row tables, is set where any ray loads a node or row.
+    With ``stats`` and ``warp_steps`` the counters get a third row: for
+    each ray, the distinct nodes that the rays of its warp (rays 32w to
+    32w + 31) load, the steps of a walk uniform across the warp (one load
+    a node for all its lanes)."""
     dev = rays.device
     o, d = rays[0:3].T, rays[3:6].T
     tmin, tmax = rays[6], rays[7]
@@ -89,10 +99,15 @@ def _walk_plain(bvh: BVH, rays, n: int, any_hit: bool, stats: bool = False,
     bu, bv = torch.zeros_like(best), torch.zeros_like(best)
     counts = torch.zeros((2, n), dtype=torch.int32, device=dev) if stats else None
     act = torch.arange(n, device=dev)
+    loads = []  # (warp, node) keys, when the warps' steps are counted
     for _ in range(MAX_STEPS):
         if act.numel() == 0:
             break
         nd = node[act]
+        if stats and warp_steps:
+            loads.append((act // WARP) * end + nd)
+            if sum(k.numel() for k in loads) > _UNIQUE_EVERY:
+                loads = [torch.unique(torch.cat(loads))]
         row = nodes[nd]
         oa, ia = o[act], inv[act]
         t1 = (row[:, 0:3] - oa) * ia
@@ -140,6 +155,11 @@ def _walk_plain(bvh: BVH, rays, n: int, any_hit: bool, stats: bool = False,
                 nxt[at] = torch.where(found, end, nxt[at])
         node[act] = nxt
         act = act[nxt < end]
+    if stats and warp_steps:
+        keys = torch.unique(torch.cat(loads)) if loads else node[:0]
+        per_warp = torch.bincount(keys // end, minlength=-(-n // WARP))
+        counts = torch.cat([counts, per_warp.to(torch.int32).repeat_interleave(
+            WARP)[None, :n]])
     return torch.stack([best, bu, bv]), prim.to(torch.int32), counts
 
 
@@ -264,13 +284,18 @@ def trace_planes(bvh: BVH, planes, n: int, any_hit: bool, stats: bool = False):
     the first primitive its walk accepts.
 
     Replaces ``raytracerfacility_tpu/ops/pallas_trace.py:61
-    _traversal_kernel``, one thread a ray. The closest hit walks near first
-    with a stack (:func:`_walk_ordered`, its plain version): on the H100 it
-    waits on node loads (on a 1M-primitive scene the 66 MB node table does
-    not fit the 50 MB L2), so it tests both children of a node at once,
-    with the loads of a level issued together, and reaches near hits
-    first. Any-hit walks the reference's skip links (:func:`_walk_plain`,
-    its plain version)."""
+    _traversal_kernel``, one thread a ray. On the H100 a walk waits on
+    node loads (on a 1M-primitive scene the 66 MB node table does not fit
+    the 50 MB L2). The closest hit walks near first with a stack
+    (:func:`_walk_ordered`, its plain version): it tests both children of
+    a node at once, with the loads of a level issued together, and reaches
+    near hits first. Any-hit walks the reference's skip links
+    (:func:`_walk_plain`, its plain version), each lane on its own, so a
+    warp keeps its lanes' node loads in flight together; a walk uniform
+    across the warp, which loads each node of the union of its lanes'
+    walks once (``_walk_plain(..., warp_steps=True)`` counts those steps),
+    ran 2.7 to 2.9 times as long on config 6's shadow rays (``csrc/bvh.cu``
+    says why)."""
     device = planes[0].device
     if device.type == "cpu":
         rays = torch.stack([p[:n] for p in planes])

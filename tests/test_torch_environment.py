@@ -1,9 +1,11 @@
 """The port's environment lighting (ops/texture.py, ops/environment.py)
 against the JAX package's: the texture-stack and cubemap fetches, the CIE
 sky, the Nishita sky (both of tests/test_nishita_clamp.py's cases on the
-port's function and on the miss kernel's plain version), the miss shader
+port's function and on the miss kernel's plain version), the sky's
+per-sample terms summed in the 16-lane kernel's order, the miss shader
 in all three modes, the plain miss radiance, ``EnvironmentProperties``
-with the atmosphere fields, and ``convert.environment_from_numpy``.
+with the atmosphere fields, the defaults' device, and
+``convert.environment_from_numpy``.
 
 Inputs are made from a seed with numpy: a few hundred directions that
 include the six axes, face edges and corners, and rays below the horizon.
@@ -118,6 +120,54 @@ def test_nishita_sky_matches_reference():
     assert (ref.sum(1) > 0).mean() > 0.4  # non-vacuous: the sky shines
 
 
+SKY_LANES = 16  # csrc/env.cu kSkyLanes: lanes a missed ray under the sky
+
+
+def _sky_in_lanes(pos, d, env, ns, nl):
+    """``nishita_sky`` summed as ``miss_radiance_kernel`` sums the sky: lane
+    s of a 16-lane group holds view sample s, in rounds of 16; lane 0 adds
+    its density weight to the carry of the last round and each lane adds
+    its own to the previous lane's total; the attenuated weights are
+    gathered in sample order."""
+    valid, phase_r, phase_m, hr_i, hm_i, light_r, light_m, light_valid = (
+        environment._nishita_terms(pos, d, env, ns, nl))
+    optical_r, optical_m = torch.empty_like(hr_i), torch.empty_like(hm_i)
+    carry_r, carry_m = torch.zeros_like(hr_i[:, 0]), torch.zeros_like(hm_i[:, 0])
+    for first in range(0, ns, SKY_LANES):
+        total_r, total_m = carry_r, carry_m
+        for s in range(first, min(first + SKY_LANES, ns)):
+            total_r, total_m = total_r + hr_i[:, s], total_m + hm_i[:, s]
+            optical_r[:, s], optical_m[:, s] = total_r, total_m
+        carry_r, carry_m = total_r, total_m
+    od_r, od_m = optical_r + light_r, optical_m + light_m
+    out = []
+    for c in range(3):
+        beta_r, beta_m = float(environment._BETA_R[c]), float(environment._BETA_M[c])
+        att = torch.exp(-(beta_r * od_r + float(environment._BETA_M_EXT[c]) * od_m))
+        w_r = torch.where(light_valid, att * hr_i, 0.0)
+        w_m = torch.where(light_valid, att * hm_i, 0.0)
+        sum_r, sum_m = w_r[:, 0], w_m[:, 0]
+        for s in range(1, ns):
+            sum_r, sum_m = sum_r + w_r[:, s], sum_m + w_m[:, s]
+        out.append((sum_r * beta_r * phase_r + sum_m * beta_m * phase_m) * 20.0)
+    return torch.where(valid[:, None], torch.stack(out, dim=-1), 0.0)
+
+
+@pytest.mark.parametrize("ns,nl", [(16, 8), (20, 8), (7, 3)])
+def test_nishita_sky_summed_in_lanes_equals_serial_sums(ns, nl):
+    """The per-view-sample terms, summed in the 16-lane kernel's order (more
+    than 16 samples in rounds, fewer on some lanes), equal ``nishita_sky``
+    bit for bit: the lanes add the same terms in the same order."""
+    d = _directions()
+    pos = (np.random.default_rng(7).standard_normal((d.shape[0], 3)) * 50.0
+           ).astype(np.float32)
+    _, penv = _envs()
+    pos, d = torch.tensor(pos), torch.tensor(d)
+    want = environment.nishita_sky(pos, d, penv, ns, nl)
+    assert torch.equal(_sky_in_lanes(pos, d, penv, ns, nl), want)
+    assert float(want.sum(1).gt(0).float().mean()) > 0.4
+
+
 def _horizon_dirs(n, up_min, up_max, seed=0):
     """tests/test_nishita_clamp.py::_dirs: y uniform in [up_min, up_max]."""
     rng = np.random.default_rng(seed)
@@ -228,6 +278,22 @@ def test_miss_radiance_plain_adds_in_place(lighting, monkeypatch):
     assert torch.equal(st[:10], before[:10]) and st.shape[0] == NPLANES
 
 
+def test_compact_misses_lists_the_missed_lanes():
+    """The plain version of the miss kernels' compaction pass: the lanes
+    with miss > 0 in order, then their count (the kernel appends the same
+    lanes in no set order); a plane the kernel cannot take raises."""
+    miss = torch.tensor((np.random.default_rng(8).uniform(size=300) < 0.3)
+                        .astype(np.float32))
+    miss[5] = -1.0  # not > 0: not missed
+    listed, count = environment.compact_misses(miss)
+    k = int(count[0])
+    assert listed.dtype == count.dtype == torch.int32 and listed.shape == (300,)
+    assert torch.equal(listed[:k].long(), torch.nonzero(miss > 0)[:, 0]) and k > 50
+    for bad in (miss[::2], miss.double(), miss[None]):
+        with pytest.raises(ValueError):
+            environment.compact_misses(bad)
+
+
 def test_environment_properties_state_and_changed():
     props = EnvironmentProperties(lighting_type=EnvironmentalLightingType.SKYDOME,
                                   hr=8000.0, g=0.7, num_samples=8)
@@ -250,6 +316,21 @@ def test_environment_properties_state_and_changed():
     assert cm.shape == (6, 4, 5, 4) and bool((cm[..., 3] == 1.0).all())
 
 
+def test_environment_defaults_need_a_device():
+    """The defaults name their device, as ``Scene.build(device)`` does:
+    without one they raise, with one they lie on it."""
+    with pytest.raises(TypeError):
+        environment.EnvironmentState.default()
+    with pytest.raises(TypeError):
+        environment.AtmosphereState.default()
+    with pytest.raises(TypeError):
+        environment.EnvironmentState.default(gamma=torch.tensor(2.2))
+    env = environment.EnvironmentState.default("cpu", gamma=torch.tensor(2.2))
+    assert env.sun_direction.device.type == "cpu"
+    assert float(env.gamma) == float(torch.tensor(2.2))
+    assert environment.AtmosphereState.default("cpu").hr.device.type == "cpu"
+
+
 def test_environment_from_numpy():
     renv, penv = _envs(_cubemap(4, 6), skylight_intensity=0.7, gamma=2.2)
     for k in ("skylight_intensity", "ambient_light_intensity", "light_size",
@@ -259,7 +340,7 @@ def test_environment_from_numpy():
         assert getattr(penv, k).dtype == torch.float32
     for k in ("earth_radius", "atmosphere_radius", "hr", "hm", "g"):
         assert float(getattr(penv.atmosphere, k)) == float(getattr(renv.atmosphere, k))
-    default = environment.EnvironmentState.default()
+    default = environment.EnvironmentState.default(device="cpu")
     assert float(default.atmosphere.hm) == 1200.0 and default.cubemap is None
     bad = jax.tree_util.tree_map(np.asarray, renv).replace(cubemap=np.zeros((6, 4, 4, 3)))
     with pytest.raises(ValueError):

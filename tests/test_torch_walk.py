@@ -14,7 +14,10 @@ plain replays, against the plain versions and the JAX package on the CPU.
   the reference's ``trace_closest_bvh``; it tests fewer nodes and rows in
   all, and no ray reaches the step cap. K5's any-hit walks the skip links,
   so its CPU path is ``_walk_plain``, whose flag is the reference's
-  ``trace_any_bvh``'s. On six recorded BASELINE config-7 rays the
+  ``trace_any_bvh``'s. The skip walk's warp-step counter (the distinct
+  nodes a warp of 32 rays loads, the steps of a walk uniform across the
+  warp) equals a count of each warp's loads, and counting it changes no
+  output. On six recorded BASELINE config-7 rays the
   reference's ``trace_closest_bvh`` and its transcription ``_walk_plain``
   (unpadded best-t cull) miss brute force's nearest curve segment; the
   ordered walk, whose cull is padded, takes it. On two LiDAR beams of
@@ -204,6 +207,68 @@ def test_k5_ordered_walk_matches_skip_walk(soups, soup, query):
     # the CPU wrapper is K5's plain version
     got = traverse.trace_planes(mine, planes, 512, any_hit, stats=True)
     assert all(torch.equal(a, b) for a, b in zip(got, (out, prim, counts)))
+
+
+def _warp_rays(n, seed):
+    """(8, n) planes of ``n`` rays in warps of 32 that share an origin
+    region and a direction cone, as a wavefront's sorted rays do; tmin
+    1e-3, tmax 1e20, every 7th ray dead (tmax below tmin)."""
+    rng = np.random.default_rng(seed)
+    w = -(-n // traverse.WARP)
+    o = (rng.uniform(-3, 3, (w, 1, 3)) + rng.normal(0, 0.05, (w, 32, 3)))
+    d = rng.normal(size=(w, 1, 3)) + rng.normal(0, 0.1, (w, 32, 3))
+    o, d = o.reshape(-1, 3)[:n], d.reshape(-1, 3)[:n]
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    planes, _ = traverse._planes(torch.tensor(o, dtype=torch.float32),
+                                 torch.tensor(d, dtype=torch.float32), 1e-3, 1e20)
+    rays = torch.stack(planes)
+    rays[7, ::7] = brute.DEAD
+    return rays
+
+
+@pytest.mark.parametrize("query", ["closest", "any"])
+@pytest.mark.parametrize("soup", ["padded", "curves"])
+def test_k5_warp_steps_count_each_warps_distinct_node_loads(soups, soup, query,
+                                                            monkeypatch):
+    """The warp-step replay of a skip walk uniform across the warp: each
+    ray's third counter is the number of distinct nodes the rays of its warp
+    load, counted here one warp at a time with ``touched`` (the last warp
+    ragged). Repeats are dropped every 256 keys, so the replay's merging
+    runs too. A warp takes at least as many steps as its longest walk and
+    at most all its lanes' visits."""
+    monkeypatch.setattr(traverse, "_UNIQUE_EVERY", 256)
+    _, mine = soups[soup]
+    n = 200
+    rays = _warp_rays(n, 41)
+    any_hit = query == "any"
+    _, _, counts = traverse._walk_plain(mine, rays, n, any_hit, stats=True,
+                                        warp_steps=True)
+    assert counts.shape == (3, n)
+    for lo in range(0, n, traverse.WARP):
+        hi = min(lo + traverse.WARP, n)
+        touched = (torch.zeros(mine.num_nodes, dtype=torch.bool),
+                   torch.zeros(mine.tris.shape[0], dtype=torch.bool))
+        traverse._walk_plain(mine, rays[:, lo:hi].contiguous(), hi - lo, any_hit,
+                             touched=touched)
+        assert bool((counts[2, lo:hi] == int(touched[0].sum())).all())
+        visits = counts[0, lo:hi]
+        assert int(visits.max()) <= int(counts[2, lo]) <= int(visits.sum())
+    assert int((counts[2] > counts[0]).sum()) > n // 2  # lanes part ways
+
+
+@pytest.mark.parametrize("query", ["closest", "any"])
+def test_k5_warp_steps_leave_the_walk_unchanged(soups, query):
+    """With the warps' steps counted, the skip walk's outputs and per-lane
+    counters are those it gives without them."""
+    _, mine = soups["curves"]
+    rays = _warp_rays(160, 42)
+    any_hit = query == "any"
+    want = traverse._walk_plain(mine, rays, 160, any_hit, stats=True)
+    got = traverse._walk_plain(mine, rays, 160, any_hit, stats=True, warp_steps=True)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert torch.equal(got[2][:2], want[2]) and bool((want[1] >= 0).any())
+    bare = traverse._walk_plain(mine, rays, 160, any_hit, warp_steps=True)
+    assert bare[2] is None and torch.equal(bare[0], want[0])
 
 
 # rays 114649, 121668, 123554, 353067, 362413 and 506145 of BASELINE config

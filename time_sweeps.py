@@ -23,10 +23,11 @@ under 512x512 primary rays (K4); on ``build_bvh=True`` scenes, config 6's
 first walker launch at 512x512 x 2 frames and its SingleLightSource shadow
 rays, config 7's first walker launch at 2 frames and config 4's first
 (K5); under the Nishita sky of ``chip_smoke.py`` phase 21, the 1080p
-path's first two K1-env launches (K1env) and the miss kernel's first
-launch with missed rays at 1080p under the sky and under phase 22's
-cubemap, and its first launch of config 4 under the sky (MISS; the names
-K1env and MISS need a tree that has them). ``--only`` keeps the named
+path's first two K1-env launches (K1env) and the miss hook
+(``environment.miss_radiance``, every launch it makes) on its first call
+with missed rays at 1080p under the sky and under phase 22's cubemap, and
+on its first call of config 4 under the sky (MISS; the names K1env and
+MISS need a tree that has them). ``--only`` keeps the named
 kernels' shapes (default: all but K1env and MISS). Each time is the median
 of ``--reps`` CUDA-event timings of one launch (K1's inputs are cloned
 inside the window, as ``chip_smoke.py`` does). Needs one CUDA device;
