@@ -60,6 +60,13 @@ its kernels:
   the wavefront engine on the LBVH (K5 and the miss kernel); config 4
   under the sky against the walker; config 7's strands under the sky on
   K3 and the miss kernel.
+- BASELINE config 3 (``bench.py:165-195``): the CompressedBTF sphere of
+  ``scenes.btf_sphere`` at 256x256, 2 bounces, 8 pooled frames, on the
+  wavefront engine (K3, then the compaction and the BTF decode kernel
+  ``btf_decode_kernel``, ``csrc/btf.cu``, each segment), every decode call
+  against ``ops/btf.py::_btf_colors_plain``, the frame against the same
+  render with the plain decode, Mrays/s, a profile, the decode's and K3's
+  times and bounds; the same scene under SingleLightSource.
 
 K2 and K2-SLS must equal their plain versions on all 12 output planes of
 every ray (K2-SLS at least on ``HIT_AGREE`` of them), and their work
@@ -2237,6 +2244,8 @@ def _family(name):
         return "miss_radiance_kernel"
     if "miss_compact_kernel" in name:
         return "miss_compact_kernel"
+    if "btf_decode_kernel" in name:
+        return "btf_decode_kernel"
     if "fused_sls_kernel" in name:
         return "K2-SLS fused_sls_kernel"
     if "fused_path_kernel" in name:
@@ -2873,6 +2882,249 @@ def environment_phase(device, totals, compiled, cam_s, c7, c7_cam_s):
     return out
 
 
+# ---------------------------------------------------------------------------
+# BASELINE config 3 (phase 26; bench.py:165-195 run_config3): the
+# CompressedBTF sphere of scenes.btf_sphere at 256x256, 2 bounces, 1 spp, 8
+# progressive frames pooled into one 524,288-ray pool, on the wavefront
+# engine: K3 closest hit, then the compaction (miss_compact_kernel over the
+# segment's BTF mask) and btf_decode_kernel, each live segment; under
+# SingleLightSource also K3 any-hit
+C3, C3_FRAMES = 256, 8
+C3_SEGMENTS = 3  # bounces + 1
+# each decoded lane's float operations as the kernel writes them (adds,
+# multiplies, divisions, compares, selects, min/max and each float64
+# transcendental call counted one; the integer index arithmetic and the
+# table loads not counted): two tangent-space angle pairs (39 each), the
+# angles to cells (62, then 38 for the four cells), four PDF2 records (92
+# each: two IndexAB lerps, two Hermite evaluations, the YCbCr conversion),
+# two PDF3 blends (12 each) and the PDF4 blend with the post-ops (27)
+BTF_OPS = 2 * 39 + 62 + 38 + 4 * 92 + 2 * 12 + 27
+# a decoded lane's bytes, read or written once: its list entry, slot,
+# texture coordinate, view and illumination directions, normal, tangent,
+# and its colour written
+BTF_LANE_BYTES = 4 * (1 + 1 + 2 + 3 + 3 + 3 + 3 + 3)
+# the decode against its plain version, the miss kernel's gate: the same
+# operations in the same order, the same float64 libm calls
+BTF_RTOL, BTF_ATOL = 1e-5, 1e-7
+BTF_KERNELS = {"brute_trace_kernel<false>": C3_SEGMENTS,
+               "miss_compact_kernel": C3_SEGMENTS,
+               "btf_decode_kernel": C3_SEGMENTS}
+
+
+@contextlib.contextmanager
+def capture_btf(calls):
+    """Record the inputs of every ``btf_colors`` call the wavefront engine
+    makes within the block (cloned)."""
+    from raytracerfacility_tpu_torch.models import pathtracer
+
+    def record(scene, mask, *args):
+        calls.append((scene, mask.clone(), *(a.clone() for a in args)))
+
+    with _spied([pathtracer], "btf_colors", record):
+        yield
+
+
+def check_btf(call, what):
+    """The decode on one captured call against its plain version: the
+    compaction lists exactly the mask's lanes (its count on the device
+    equal to theirs), every decoded lane within BTF_ATOL + BTF_RTOL *
+    |plain|, every other lane 1 in both. Returns (lanes, max |d|, lanes
+    beyond the gate, plain ms)."""
+    import torch
+
+    from raytracerfacility_tpu_torch.ops import btf, environment
+
+    scene, mask, *args = call
+    out_k = btf.btf_colors(scene, mask, *args)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out_p = btf._btf_colors_plain(scene, mask, *args)
+    end.record()
+    end.synchronize()
+    lanes = int(mask.sum())
+    listed, count = environment.compact_misses(mask.to(torch.float32))
+    if not (int(count[0]) == lanes and torch.equal(
+            torch.sort(listed[:lanes].long())[0], torch.nonzero(mask)[:, 0])):
+        raise AssertionError(f"btf {what}: the compaction listed {int(count[0])} "
+                             f"lanes, not the mask's {lanes}")
+    d = (out_k[mask] - out_p[mask]).abs()
+    beyond = int((d > BTF_ATOL + BTF_RTOL * out_p[mask].abs()).any(-1).sum())
+    err = float(d.max()) if lanes else 0.0
+    same = int((d == 0).all(-1).sum())
+    rest = bool((out_k[~mask] == 1.0).all() and (out_p[~mask] == 1.0).all())
+    print(f"  btf_decode_kernel {what}: {mask.shape[0]} lanes, {lanes} decoded "
+          f"({int(count[0])} compacted), bit-equal on {same}, max |d| {err:.3g}, "
+          f"{beyond} beyond |d| <= {BTF_ATOL:g} + {BTF_RTOL:g} |plain|; plain "
+          f"{start.elapsed_time(end):.3f} ms")
+    if beyond or not rest:
+        raise AssertionError(f"btf {what}: the kernel disagrees with its plain version")
+    return lanes, err, beyond, start.elapsed_time(end)
+
+
+def _check_relative(a, b, what, aov=False):
+    """The frame gates (tests/test_fused.py:58-73) on |d| / max(1, |b|): a
+    BTF frame's colours reach about 200 after the gamma and its albedo the
+    decoded colour itself (about 1e5); the bench frames lie in [0, 1]. The
+    colour gate for colour and albedo, the AOV gate for normals."""
+    import torch
+
+    a, b = a.double(), b.double()
+    d = (a - b).abs() / b.abs().clamp(min=1.0)
+    q99, q999, mean = _quantile(d, 0.99), _quantile(d, 0.999), float(d.mean())
+    print(f"  {what}: bit-identical {bool(torch.equal(a, b))}, max |d| "
+          f"{float((a - b).abs().max()):.3g}; relative p99 {q99:.3g} p99.9 "
+          f"{q999:.3g} mean {mean:.3g}")
+    ok = q999 < AOV_Q999 if aov else (q99 < COLOR_Q99 and q999 < COLOR_Q999
+                                      and mean < COLOR_MEAN)
+    if not ok:
+        raise AssertionError(f"{what} outside the gate")
+
+
+def btf_bound(call, lanes):
+    """(bound ms, what bounds it) of one decode launch: BTF_LANE_BYTES a
+    decoded lane, the count and every table read once, against
+    BTF_OPS a lane."""
+    btf = call[0].btf
+    nbytes = lanes * BTF_LANE_BYTES + 4 + _nbytes(btf.floats, btf.ints, btf.idesc,
+                                                  btf.fdesc)
+    t_bytes, t_ops = nbytes / PEAK_BYTES, lanes * BTF_OPS / PEAK_FLOPS
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def btf_phase(device, totals, smi):
+    """Phase 26: BASELINE config 3 on the card, counted (K3 closest hit,
+    the compaction and btf_decode_kernel once a live segment); every decode
+    call against its plain version; the frame against the same render with
+    the plain decode; Mrays/s (median of five warm calls); a profile; the
+    decode's and K3's times and bounds on the path's launches; then the
+    same scene under SingleLightSource (K3 any-hit, the BTF base colour).
+    Returns the decode row's numbers."""
+    import dataclasses
+
+    import torch
+
+    from raytracerfacility_tpu_torch.enums import EnvironmentalLightingType
+    from raytracerfacility_tpu_torch.models import pathtracer
+    from raytracerfacility_tpu_torch.models.pathtracer import (
+        init_frame,
+        render_frames_counted,
+    )
+    from raytracerfacility_tpu_torch.ops import brute, btf, environment
+    from raytracerfacility_tpu_torch.scenes import btf_sphere
+
+    store, cam, env, config = btf_sphere(C3, C3)
+    compiled = store.build(device)
+    if not (compiled.fused is None and compiled.btf is not None
+            and compiled.pallas_tris is not None):
+        raise AssertionError("config 3 must compile K3's table and the BTF tables only")
+    cam_s, env_s = cam.state(device), env.state(device)
+
+    def render(cfg=config, env_state=env_s):
+        return render_frames_counted(compiled, cam_s, env_state, cfg,
+                                     init_frame(C3, C3, device), C3_FRAMES)
+
+    calls = []
+    with capture_btf(calls):
+        (frame, rays), launches = counted(render, BTF_KERNELS, totals)
+    rays = int(rays)
+    print(f"  {C3}x{C3}, {config.bounces} bounces, {C3_FRAMES} pooled frames: "
+          f"{rays} live rays, launches {launches}")
+    if not (bool(torch.isfinite(frame.color).all()) and rays > 0
+            and frame.frame_id == C3_FRAMES and len(calls) == C3_SEGMENTS
+            and tuple(frame.color.shape) == (C3, C3, 4)):
+        raise AssertionError("config 3: the frame is not finite, counted and whole")
+    err, checked = 0.0, []
+    for i, call in enumerate(calls):
+        lanes, e, _, plain_ms = check_btf(call, f"segment {i}")
+        err = max(err, e)
+        checked.append((lanes, plain_ms))
+    albedo = frame.albedo[..., :3]
+    print(f"  frame: colour mean {float(frame.color[..., :3].mean()):.4f}, "
+          f"albedo max {float(albedo.max()):.4g} (the decoded first hits)")
+
+    real = pathtracer.btf_colors
+    pathtracer.btf_colors = btf._btf_colors_plain
+    try:
+        plain_frame, plain_rays = render()
+    finally:
+        pathtracer.btf_colors = real
+    print(f"  the frame against the plain decode's (live rays {int(plain_rays)} "
+          f"against {rays})")
+    _check_relative(frame.color, plain_frame.color, "colour")
+    _check_relative(frame.albedo, plain_frame.albedo, "albedo")
+    _check_relative(frame.normal, plain_frame.normal, "normal", aov=True)
+    if int(plain_rays) != rays:
+        raise AssertionError("config 3: the plain decode traced other rays")
+
+    median_s, walls, live = median_calls(lambda: render()[1])
+    print(f"  Mrays/s {live / median_s / 1e6:.3f} (median of 5 warm calls, "
+          f"{median_s * 1e3:.3f} ms; walls "
+          f"{', '.join(f'{w * 1e3:.3f}' for w in walls)} ms; {live} live rays) "
+          f"[{smi}]")
+    wall_ms, busy_ms, _, fam = profile_call(render)
+    print_profile("config 3 call", wall_ms, busy_ms, fam, median_s)
+
+    top = max(range(len(calls)), key=lambda i: checked[i][0])
+    scene_, mask, *args = calls[top]
+    lanes, n = checked[top][0], mask.shape[0]
+    listed, count = environment.compact_misses(mask.to(torch.float32))
+    planes = [a.contiguous() for a in args]
+    out = torch.ones((n, 3), device=device)
+    ms = _device_ms(lambda: btf.launch_decode(scene_.btf, listed, count, n, *planes,
+                                              out))
+    call_ms, call_times = _median_ms(lambda: btf.btf_colors(scene_, mask, *args))
+    bnd, by = btf_bound(calls[top], lanes)
+    print(f"  btf_decode_kernel on segment {top} ({lanes} of {n} lanes): "
+          f"{ms:.4f} ms on the device (ten launches queued behind a sleep), "
+          f"btf_colors (compaction and decode) median of 5 {call_ms:.4f} ms "
+          f"({', '.join(f'{t:.4f}' for t in call_times)}), plain "
+          f"{checked[top][1]:.3f} ms; bound {bnd:.4f} ms by {by} "
+          f"({BTF_LANE_BYTES} bytes and {BTF_OPS} operations a lane, the tables "
+          f"once); {launches['btf_decode_kernel']} launches on the counted path "
+          f"[{smi}]")
+
+    k3 = capture_k3(render)
+    tabs, k3_planes, k3_n = k3[False]
+    print("  K3 vs plain on the path's first closest-hit launch")
+    k3_err, k3_out, k3_plain_ms = check_k3(tabs, k3_planes, k3_n, False)
+    k3_ms, k3_times = _median_ms(lambda: brute.trace_planes(tabs, k3_planes, k3_n,
+                                                            False))
+    tri, cur = culled_tests(tabs, brute.TRI_CHUNK, k3_planes, k3_n, k3_out[0])
+    k3_bound, k3_by = bound(_nbytes(*tabs) + 4 * 12 * k3_n, tri, cur)
+    print(f"  K3 on config 3 segment 0 ({k3_n} rays): median of 5 {k3_ms:.4f} ms "
+          f"({', '.join(f'{t:.4f}' for t in k3_times)}), plain {k3_plain_ms:.3f} "
+          f"ms, bound {k3_bound:.4f} ms by {k3_by} [{smi}]")
+
+    sls_type = EnvironmentalLightingType.SINGLE_LIGHT_SOURCE
+    sls_cfg = dataclasses.replace(config, lighting_type=sls_type)
+    sls_env = _sls_env().state(device)
+    sls_calls = []
+    with capture_btf(sls_calls):
+        (sls_frame, sls_rays), sls_launches = counted(
+            lambda: render(sls_cfg, sls_env),
+            {"brute_trace_kernel<false>": 1, "brute_trace_kernel<true>": 1,
+             "miss_compact_kernel": 1, "btf_decode_kernel": 1}, totals)
+    print(f"  under SingleLightSource: {int(sls_rays)} live rays, launches "
+          f"{sls_launches}")
+    for i, call in enumerate(sls_calls):
+        err = max(err, check_btf(call, f"SLS segment {i}")[1])
+    pathtracer.btf_colors = btf._btf_colors_plain
+    try:
+        sls_plain, _ = render(sls_cfg, sls_env)
+    finally:
+        pathtracer.btf_colors = real
+    _check_relative(sls_frame.color, sls_plain.color, "SLS colour")
+    _check_relative(sls_frame.albedo, sls_plain.albedo, "SLS albedo")
+    if not bool(torch.isfinite(sls_frame.color).all()):
+        raise AssertionError("config 3 SLS: the frame is not finite")
+    return {"err": err, "ms": ms, "plain_ms": checked[top][1], "bound_ms": bnd,
+            "bound_by": by, "lanes": lanes, "n": n, "call_ms": call_ms,
+            "mrays": live / median_s / 1e6,
+            "k3": {"ms": k3_ms, "plain_ms": k3_plain_ms, "bound_ms": k3_bound,
+                   "bound_by": k3_by, "rays": k3_n, "max_abs_err": k3_err}}
+
+
 def ptxas_summary(log):
     """{kernel: "R registers, S/L bytes spill stores/loads, B bytes static
     smem"} from nvcc's ``-Xptxas -v`` log (the sweep kernels also take 4
@@ -3298,6 +3550,10 @@ def main() -> int:
     c5_k2, c5_k3 = config5_phase(device, totals, smi.splitlines()[0])
     # phases 21-24: the cubemap and the sky on K1-env, the miss kernel, K3, K5
     envr = environment_phase(device, totals, compiled, cam_s, c7, c7_cam_s)
+    # phase 26: BASELINE config 3 (CompressedBTF) on K3 and btf_decode_kernel
+    print("phase 26: BASELINE config 3, the CompressedBTF sphere, on the wavefront "
+          "engine (K3 and btf_decode_kernel)")
+    c3 = btf_phase(device, totals, smi.splitlines()[0])
 
     def row(name, source, replaces, err, ms, plain_ms, bnd, by):
         return {"name": name, "route": "cuda",
@@ -3345,6 +3601,14 @@ def main() -> int:
                     f"{envr['miss']['1080p sky']['lanes']} lanes; library_ms: "
                     "torch.nonzero of the miss plane"),
              ptxas=ptxas.get("miss_compact_kernel")),
+        dict(row("btf_decode_kernel", "btf.cu",
+                 "none: XLA glue raytracerfacility_tpu/mlvq/btf.py:316 btf_get_value "
+                 "(models/pathtracer.py:209 _btf_colors)",
+                 *(c3[k] for k in ("err", "ms", "plain_ms", "bound_ms", "bound_by"))),
+             shape=(f"config 3's busiest segment, {c3['lanes']} of {c3['n']} lanes "
+                    "decoded"),
+             btf_colors_ms=c3["call_ms"], config_3_mrays=c3["mrays"],
+             ptxas=ptxas.get("btf_decode_kernel")),
         dict(row("fused_path_kernel", "path.cu",
                  "raytracerfacility_tpu/ops/pallas_fused.py:217",
                  max(k2_err, c5_k2["max_abs_err"]), k2_ms, k2_plain_ms, k2_bound,
@@ -3361,6 +3625,7 @@ def main() -> int:
                  "raytracerfacility_tpu/ops/pallas_brute.py:201",
                  max(k3c_err, c5_k3["max_abs_err"]), *k3["closest"][:4]),
              shape=f"config 7 segment 0, {k3['closest'][4]} rays", config_5=c5_k3,
+             config_3=c3["k3"],
              work=k3["closest"][5], ptxas=ptxas.get("brute_trace_kernel<false, false>")),
         dict(row("brute_trace_kernel<true>", "brute.cu",
                  "raytracerfacility_tpu/ops/pallas_brute.py:201", k3a_err,

@@ -2,7 +2,8 @@
 
 The compiled scene takes the place of weights; the one network is the
 denoiser. These functions take the reference's packed path tables, frame
-buffers, light probes, environment and denoiser parameters (converted to
+buffers, light probes, environment, BTF databases and denoiser
+parameters (converted to
 numpy by the caller, so this module never imports JAX) and return the
 port's tensors, so the same scene, frame, probes, environment and network
 can be fed to both packages.
@@ -10,9 +11,12 @@ can be fed to both packages.
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
+from raytracerfacility_tpu_torch.mlvq.btf import ARRAYS, BTFData
 from raytracerfacility_tpu_torch.models.illumination import (
     PROBE_FIELDS,
     LightProbes,
@@ -97,6 +101,25 @@ def environment_from_numpy(env, device) -> EnvironmentState:
     atmosphere = AtmosphereState(**{k: t(getattr(atm, k), ())
                                     for k in _ATMOSPHERE_FIELDS})
     return EnvironmentState(**fields, cubemap=cubemap, atmosphere=atmosphere)
+
+
+_BTF_SCALARS = tuple(f.name for f in dataclasses.fields(BTFData)
+                     if f.name not in dict(ARRAYS) and f.name != "beta_angles")
+
+
+def btf_data_from_numpy(ref_data) -> BTFData:
+    """The reference's ``BTFData`` (any object with its fields as
+    attributes, the arrays convertible by ``np.asarray``) as the port's:
+    the header parameters as Python scalars, the 13 arrays and
+    ``beta_angles`` as contiguous copies of their types (``beta_angles``
+    None when the reference's is)."""
+    data = BTFData(**{k: getattr(ref_data, k) for k in _BTF_SCALARS})
+    for name, dtype in ARRAYS:
+        arr = getattr(ref_data, name)
+        setattr(data, name, None if arr is None else np.array(arr, dtype))
+    beta = getattr(ref_data, "beta_angles", None)
+    data.beta_angles = None if beta is None else np.array(beta, np.float32)
+    return data
 
 
 # flax module paths of the reference's DenoiserUNet, in call order, and

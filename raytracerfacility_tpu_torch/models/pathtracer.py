@@ -26,8 +26,10 @@ no path tables) runs the wavefront engine: trace on K3 (``ops/brute.py``)
 when the scene has its packed table, else on the LBVH walker K5
 (``ops/traverse.py``), the reference's order (pathtracer.py:114-157);
 shade in torch ops, one segment at a time, the cubemap or sky miss through
-the same ``miss_radiance``. Not ported yet, and refused with
-``NotImplementedError``: alpha testing, BTF and subsurface.
+the same ``miss_radiance``, and the CompressedBTF materials' colours
+through ``ops/btf.py::btf_colors`` (kernel ``btf_decode_kernel``). Not
+ported yet, and refused with ``NotImplementedError``: alpha testing and
+subsurface.
 
 The bottom-up energy recurrence of the reference (ref
 RayFunctions.cuh:152-171) is carried top-down as ``radiance += throughput
@@ -43,6 +45,7 @@ import torch
 
 from raytracerfacility_tpu_torch.enums import (
     EnvironmentalLightingType,
+    MaterialType,
     OutputType,
 )
 from raytracerfacility_tpu_torch.ops.brute import (
@@ -52,6 +55,7 @@ from raytracerfacility_tpu_torch.ops.brute import (
     trace_planes,
 )
 from raytracerfacility_tpu_torch.ops import brute, traverse
+from raytracerfacility_tpu_torch.ops.btf import btf_colors
 from raytracerfacility_tpu_torch.ops.camera import CameraState, generate_camera_rays
 from raytracerfacility_tpu_torch.ops.environment import (
     EnvironmentState,
@@ -114,7 +118,9 @@ class RenderConfig:
     ``atmosphere_samples`` and ``atmosphere_samples_light`` are the Nishita
     sky's view and light samples (ref pathtracer.py:90-91). The
     reference's texture, vertex-colour and alpha-segment fields serve
-    features that are not ported and are left out."""
+    features that are not ported and are left out. ``enable_btf`` shades
+    CompressedBTF materials (ref RayFunctions.cuh:173-257); the path
+    engines do not, so it takes the wavefront engine."""
 
     width: int = 512
     height: int = 512
@@ -125,7 +131,7 @@ class RenderConfig:
     accumulate: bool = True
     atmosphere_samples: int = 16
     atmosphere_samples_light: int = 8
-    # alpha testing, BTF and subsurface are refused (not ported)
+    # alpha testing and subsurface are refused (not ported)
     alpha_test: bool = False
     enable_btf: bool = False
     enable_subsurface: bool = False
@@ -244,7 +250,13 @@ def _segment(scene: CompiledScene, env: EnvironmentState, config: RenderConfig,
     and material, emission, first-hit AOVs, and then either the
     SingleLightSource ambient + sun-cone NEE (the path ends) or the BRDF
     continuation (ref pathtracer.py:304-586 and RayFunctions.cuh:25-272;
-    the alpha, BTF and subsurface branches are not ported)."""
+    the alpha and subsurface branches are not ported). On CompressedBTF
+    lanes with ``enable_btf`` (ref :366-408, :413-422, :547-553): the
+    BRDF sample takes cone 0, the BTF colour (illuminated from the sun
+    sample under SingleLightSource, else from the new direction) is the
+    first-hit albedo, the SingleLightSource base colour and the
+    continuation's weight; no emission; the bounce starts 1e-3 along the
+    geometric normal."""
     st = state.st
     origin, direction = st[OX:OZ + 1].T, st[DX:DZ + 1].T
     throughput, radiance = st[TR:TB + 1].T, st[RR:RB + 1].T
@@ -274,30 +286,47 @@ def _segment(scene: CompiledScene, env: EnvironmentState, config: RenderConfig,
     # hit: interpolate and evaluate the material
     accepted = active & res.hit
     hit = interpolate_hit(scene, res.prim, res.u, res.v, direction, origin,
-                          res.t, with_tangent=False, with_vertex_attrs=False)
+                          res.t, with_tangent=config.enable_btf,
+                          with_vertex_attrs=False)
     surf = eval_material(scene, hit)
     new_hc = where(accepted, hc + 1.0, hc)
+    use_btf = config.enable_btf and scene.btf is not None
+    is_btf = ((surf.material_type == MaterialType.COMPRESSED_BTF) if use_btf
+              else torch.zeros_like(accepted))
 
     sls = config.lighting_type == EnvironmentalLightingType.SINGLE_LIGHT_SOURCE
     if sls:  # sun-cone sample (ref RayFunctions.cuh:61-92)
         rng_s, sun_dir = sample_hemisphere(
             rng, env.sun_direction.expand_as(direction), 1.0 - env.light_size)
         rng = where(accepted, rng_s, rng)
-    else:  # BRDF importance sample (ref BSDF.cuh:6-13)
-        rng_b, new_dir = sample_brdf(rng, direction, surf.shading_normal,
-                                     surf.metallic)
+        illum_dir = sun_dir
+    else:  # BRDF importance sample (ref BSDF.cuh:6-13); BTF lanes sample
+        # the whole hemisphere around the reflection (ref :221)
+        cone = where(is_btf, 0.0, surf.metallic) if use_btf else surf.metallic
+        rng_b, new_dir = sample_brdf(rng, direction, surf.shading_normal, cone)
+        illum_dir = new_dir
 
-    # first-hit AOVs (ref RayFunctions.cuh:163-167) and emission (:168-171)
+    # the BTF colour (ref SurfaceCompressedBTF::GetValue,
+    # RayDataDefinations.hpp:326-351) on the geometric frame
+    btf_color = base_color = surf.albedo
+    if use_btf:
+        btf_color = btf_colors(scene, is_btf & accepted, surf.btf_index,
+                               hit.tex_coord, -direction, illum_dir, hit.normal,
+                               hit.tangent)
+        base_color = where(is_btf[:, None], btf_color, surf.albedo)
+
+    # first-hit AOVs (ref RayFunctions.cuh:163-167, 251-255) and emission
+    # (:168-171; none on BTF lanes, :256)
     first = (accepted & (hc == 0.0))[:, None]
     first_normal = where(first, surf.shading_normal, first_normal)
-    first_albedo = where(first, surf.albedo, first_albedo)
+    first_albedo = where(first, base_color, first_albedo)
     first_position = where(first, hit.position, first_position)
-    radiance = where(accepted[:, None],
+    radiance = where((accepted & ~is_btf)[:, None],
                      radiance + throughput * surf.emission[:, None] * surf.albedo,
                      radiance)
 
     if sls:  # ambient + one sun NEE sample, no continuation
-        ambient = env.color * env.ambient_light_intensity * surf.albedo
+        ambient = env.color * env.ambient_light_intensity * base_color
         radiance = where(accepted[:, None], radiance + throughput * ambient,
                          radiance)
         ndotl = dot(surf.shading_normal, sun_dir)
@@ -306,7 +335,7 @@ def _segment(scene: CompiledScene, env: EnvironmentState, config: RenderConfig,
         occluded = trace_any(scene, hit.position, sun_dir, _BOUNCE_TMIN,
                              where(do_nee, TMAX, DEAD))
         contrib = (throughput * sun_cone_intensity(env, sun_dir)
-                   * ndotl[:, None] * surf.albedo)
+                   * ndotl[:, None] * base_color)
         radiance = where((do_nee & ~occluded)[:, None], radiance + contrib,
                          radiance)
         cont = torch.zeros_like(accepted)
@@ -316,9 +345,14 @@ def _segment(scene: CompiledScene, env: EnvironmentState, config: RenderConfig,
         weight = brdf_weight(surf.shading_normal, new_dir, surf.roughness,
                              surf.metallic)
         c = cont[:, None]
-        throughput = where(c, throughput * (surf.albedo * weight[:, None]),
-                           throughput)
-        origin = where(c, hit.position, origin)
+        seg_throughput = surf.albedo * weight[:, None]
+        bounce_origin = hit.position
+        if use_btf:  # the BTF lookup alone, off the surface (ref :227-247)
+            seg_throughput = where(is_btf[:, None], btf_color, seg_throughput)
+            bounce_origin = where(is_btf[:, None], hit.position + hit.normal * 1e-3,
+                                  hit.position)
+        throughput = where(c, throughput * seg_throughput, throughput)
+        origin = where(c, bounce_origin, origin)
         direction = where(c, new_dir, direction)
         tmin = where(cont, _BOUNCE_TMIN, tmin)
 
@@ -456,8 +490,6 @@ def _refuse(config) -> None:
     ported engines."""
     if config.alpha_test:
         reason = "alpha testing"
-    elif config.enable_btf:
-        reason = "BTF materials"
     elif config.enable_subsurface:
         reason = "subsurface scattering"
     else:

@@ -180,6 +180,7 @@ class RayTracerCamera:
             output_type=self.output_type,
             accumulate=self.camera.accumulate,
             alpha_test=self._needs_alpha_test(),
+            enable_btf=compiled.btf is not None,
             atmosphere_samples=env.num_samples,
             atmosphere_samples_light=env.num_samples_light,
         )

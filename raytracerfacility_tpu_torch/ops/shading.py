@@ -4,10 +4,12 @@ Port of ``raytracerfacility_tpu/ops/shading.py``: ``interpolate_hit``
 (with the curve branch and the reference's static ``with_tangent`` /
 ``with_vertex_attrs`` switches), ``eval_material``, ``metallic_f``,
 ``brdf_weight`` and ``sample_brdf``, for what the port's scene bake
-admits: Default materials without textures. The wavefront engine calls
-``interpolate_hit`` with both switches off (the reference's
-specialization for such scenes), so it gathers no tangent, texcoord,
-colour or data; the LiDAR scan turns both on.
+admits: Default and CompressedBTF materials without textures. The
+wavefront engine calls ``interpolate_hit`` with ``with_vertex_attrs``
+off and ``with_tangent`` on only for BTF renders (the reference's
+specializations), so it gathers no colour or data; the texcoord, which
+the BTF lookup reads, is always interpolated, as in the reference. The
+LiDAR scan turns both switches on.
 """
 
 from __future__ import annotations
@@ -46,13 +48,15 @@ class HitInfo:
 
 @dataclasses.dataclass(frozen=True)
 class SurfaceSample:
-    """Evaluated Default material at a hit."""
+    """Evaluated material at a hit."""
 
     albedo: torch.Tensor  # (..., 3)
     roughness: torch.Tensor  # (...,)
     metallic: torch.Tensor  # (...,)
     emission: torch.Tensor  # (...,)
     shading_normal: torch.Tensor  # (..., 3)
+    material_type: torch.Tensor  # (...,) int32
+    btf_index: torch.Tensor  # (...,) int32, -1 when not a BTF material
 
 
 def _curve_hit(geom, prim, u, ray_direction, origin, t_hit, base):
@@ -98,10 +102,10 @@ def interpolate_hit(scene, prim, u, v, ray_direction, origin, t_hit,
     read row 0 and are masked by the caller.
 
     ``with_tangent`` and ``with_vertex_attrs`` statically elide the
-    tangent and the texcoord, colour and data fetches (their fields are
-    then None): the reference elides the tangent and the colour and data
-    the same way (ref shading.py:53-110); the port also elides the
-    texcoord, which only textures read."""
+    tangent and the colour and data fetches (their fields are then None),
+    as the reference does (ref shading.py:53-110); the texcoord is always
+    interpolated (ref shading.py:86-87), on curve rows lerped along the
+    segment."""
     geom = scene.geometry
     prim = torch.clamp(prim.to(torch.int64), 0, geom.num_triangles - 1)
     w = (1.0 - u - v)[..., None]
@@ -114,10 +118,10 @@ def interpolate_hit(scene, prim, u, v, ray_direction, origin, t_hit,
     position = base + uu * geom.e1[prim] + vv * geom.e2[prim]
     normal = bary(geom.normal[prim])
     tangent = bary(geom.tangent[prim]) if with_tangent else None
-    tex_coord = color = data = None
+    tc = geom.tex_coord[prim]
+    tex_coord = bary(tc)
+    color = data = None
     if with_vertex_attrs:
-        tc = geom.tex_coord[prim]
-        tex_coord = bary(tc)
         # nearest-vertex colour and data (ref RayDataDefinations.hpp:152-162)
         z = 1.0 - u - v
         pick_x = (u > z) & (u > v)
@@ -137,12 +141,13 @@ def interpolate_hit(scene, prim, u, v, ray_direction, origin, t_hit,
             swiz = torch.stack([c_normal[..., 1], c_normal[..., 2],
                                 c_normal[..., 0]], dim=-1)
             tangent = torch.where(is_curve, cross(c_normal, swiz), tangent)
-        if with_vertex_attrs:  # attributes lerped along the segment
+        # attributes lerped along the segment
+        tex_coord = torch.where(
+            is_curve, (1.0 - ua) * tc[..., 0, :] + ua * tc[..., 1, :], tex_coord)
+        if with_vertex_attrs:
             c = geom.color[prim]
             color = torch.where(is_curve, (1.0 - ua) * c[..., 0, :] + ua * c[..., 1, :],
                                 color)
-            tex_coord = torch.where(
-                is_curve, (1.0 - ua) * tc[..., 0, :] + ua * tc[..., 1, :], tex_coord)
             data = torch.where(is_curve, 0.0, data)
 
     normal = safe_normalize(normal)
@@ -158,12 +163,15 @@ def interpolate_hit(scene, prim, u, v, ray_direction, origin, t_hit,
 
 
 def eval_material(scene, hit: HitInfo) -> SurfaceSample:
-    """Default-material constants at the hit (ref
-    RayDataDefinations.hpp:240-284 without textures or normal maps)."""
+    """Material constants at the hit, with its type and BTF slot (ref
+    RayDataDefinations.hpp:240-284 without textures or normal maps; ref
+    shading.py:205-206, :282-283)."""
     mats, mid = scene.materials, hit.material
     return SurfaceSample(albedo=mats.albedo[mid], roughness=mats.roughness[mid],
                          metallic=mats.metallic[mid], emission=mats.emission[mid],
-                         shading_normal=hit.normal)
+                         shading_normal=hit.normal,
+                         material_type=mats.material_type[mid],
+                         btf_index=mats.btf_index[mid])
 
 
 def metallic_f(metallic: torch.Tensor) -> torch.Tensor:

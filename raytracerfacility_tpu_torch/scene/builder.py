@@ -3,8 +3,10 @@
 Port of ``raytracerfacility_tpu/scene/builder.py::build_compiled_scene``,
 cut to what the ported paths need: the triangle bake of DEFAULT meshes and
 INSTANCED meshes (per-instance matrices), the analytic curve bake of
-CURVE strands (``_bake_analytic_curves``), Default materials in slots of
-first use (ref SBT record order, builder.py:448-483), and then either
+CURVE strands (``_bake_analytic_curves``), Default and CompressedBTF
+materials in slots of first use (ref SBT record order, builder.py:448-483),
+the BTF databases packed for the decode kernel (``ops/btf.py``, ref
+builder.py:749-786), and then either
 K3's packed trace table (``ops/brute.py``) and, for scenes without curves,
 the packed trace+shade tables of ``ops/fused.py``, or, with
 ``build_bvh=True``, the LBVH of ``ops/bvh.py`` alone (the reference's
@@ -16,9 +18,9 @@ Scenes whose meshes would bake to more than :data:`MAX_WORLD_ROWS` world
 rows are refused before any bake; :func:`compile_shared_instanced` packs
 them into shared-geometry tables instead (``ops/inst.py``).
 
-Textures, BTF materials, vertex-color materials, subsurface, tessellated
-strands (``curve_mode="tessellate"``), skinning and the incremental
-rebuild cache are not ported yet and raise ``NotImplementedError``.
+Textures, vertex-color materials, subsurface, tessellated strands
+(``curve_mode="tessellate"``), skinning and the incremental rebuild cache
+are not ported yet and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -165,18 +167,15 @@ def _curve_mode(geom) -> str:
 
 def _check_material(mat) -> None:
     """Refuse what the ported shading cannot do, naming the feature."""
-    if mat.material_type != MaterialType.DEFAULT:
+    if mat.material_type not in (MaterialType.DEFAULT, MaterialType.COMPRESSED_BTF):
         raise NotImplementedError(
             f"material {mat.handle}: {MaterialType(mat.material_type).name} "
-            "materials are not ported (Default only)")
+            "materials are not ported (Default and CompressedBTF only)")
     for name in ("albedo_texture", "normal_texture", "metallic_texture",
                  "roughness_texture"):
         if getattr(mat, name) is not None:
             raise NotImplementedError(
                 f"material {mat.handle}: textures ({name}) are not ported")
-    if mat.btf is not None:
-        raise NotImplementedError(
-            f"material {mat.handle}: BTF materials are not ported")
     if float(mat.properties.subsurface_factor) > 0.0:
         raise NotImplementedError(
             f"material {mat.handle}: subsurface scattering is not ported")
@@ -221,12 +220,14 @@ def build_compiled_scene(scene, device, build_bvh: bool = False,
     the compiled scene then has ``bvh`` set and ``pallas_tris`` and
     ``fused`` None, as the reference's has on its CPU and GPU backends, and
     every render takes the wavefront engine on the LBVH walker (K5).
-    ``False`` packs K3's table and the path engines' tables. The port
+    ``False`` packs K3's table and, for scenes of triangles with Default
+    materials only, the path engines' tables. The port
     defaults to ``False``; the reference defaults to ``True``
     (``Scene.build``), which on the TPU resolves to no BVH for every scene
     without subsurface (builder.py:649-668), so the default routes match
     there."""
     from raytracerfacility_tpu_torch.ops.brute import pack_tri_table
+    from raytracerfacility_tpu_torch.ops.btf import pack_btf_tables
     from raytracerfacility_tpu_torch.ops.bvh import build_bvh as build_lbvh
     from raytracerfacility_tpu_torch.ops.fused import auto_chunk, pack_fused_tables
 
@@ -245,10 +246,12 @@ def build_compiled_scene(scene, device, build_bvh: bool = False,
         material_slot[key] = len(mat_list)
         p = mat.properties
         mat_list.append(dict(
+            material_type=int(mat.material_type),
             albedo=np.asarray(p.albedo_color, np.float32),
             roughness=p.roughness,
             metallic=p.metallic,
             emission=p.emission,
+            btf=mat.btf,
         ))
         return material_slot[key]
 
@@ -320,8 +323,9 @@ def build_compiled_scene(scene, device, build_bvh: bool = False,
             inst_material.append(0)
             inst_handles.append((0, 0))
         if not mat_list:
-            mat_list.append(dict(albedo=np.ones(3, np.float32),
-                                 roughness=1.0, metallic=0.3, emission=0.0))
+            mat_list.append(dict(material_type=0, albedo=np.ones(3, np.float32),
+                                 roughness=1.0, metallic=0.3, emission=0.0,
+                                 btf=None))
 
     merged = {k: np.concatenate([p[k] for p in parts], axis=0)
               for k in parts[0]}
@@ -333,6 +337,13 @@ def build_compiled_scene(scene, device, build_bvh: bool = False,
                 [arr, np.zeros((pad,) + arr.shape[1:], arr.dtype)], axis=0)
 
     has_curves = bool((merged["kind"] != 0).any())
+    # every BTF payload takes a slot in order (ref builder.py:749-765); a
+    # CompressedBTF material without one keeps slot -1 and shades as ones
+    btf_slots, present = [], []
+    for m in mat_list:
+        btf_slots.append(-1 if m["btf"] is None else len(present))
+        if m["btf"] is not None:
+            present.append(m["btf"])
     geometry = GeometryBuffers(
         **{k: torch.as_tensor(v, device=device) for k, v in merged.items()},
         has_curves=has_curves)
@@ -345,6 +356,9 @@ def build_compiled_scene(scene, device, build_bvh: bool = False,
                               dtype=torch.float32, device=device),
         emission=torch.tensor([m["emission"] for m in mat_list],
                               dtype=torch.float32, device=device),
+        material_type=torch.tensor([m["material_type"] for m in mat_list],
+                                   dtype=torch.int32, device=device),
+        btf_index=torch.tensor(btf_slots, dtype=torch.int32, device=device),
     )
     compiled = CompiledScene(
         geometry=geometry,
@@ -353,6 +367,7 @@ def build_compiled_scene(scene, device, build_bvh: bool = False,
                                        device=device),
         instance_handle=torch.tensor(inst_handles, dtype=torch.int64,
                                      device=device).reshape(-1, 2),
+        btf=pack_btf_tables(present, device) if present else None,
         num_tris=int(num_tris),
     )
     if build_bvh:
@@ -363,7 +378,9 @@ def build_compiled_scene(scene, device, build_bvh: bool = False,
     compiled = dataclasses.replace(compiled, pallas_tris=pack_tri_table(
         geometry.v0, geometry.e1, geometry.e2,
         geometry.kind if has_curves else None))
-    if has_curves:  # the path engines' tables hold triangles only
+    # the path engines' tables hold triangles of Default materials only
+    # (ref builder.py:853-863)
+    if has_curves or present or any(m["material_type"] for m in mat_list):
         return compiled
     chunk = auto_chunk(geometry.num_triangles)
     return dataclasses.replace(

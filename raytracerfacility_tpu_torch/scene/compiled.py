@@ -4,12 +4,13 @@ Port of ``raytracerfacility_tpu/scene/compiled.py``, cut to the fields the
 ported paths read: the world-space primitive soup (``v0``, ``e1``, ``e2``,
 per-corner ``normal``, ``tangent``, ``tex_coord``, ``color`` and ``data``,
 ``instance``, ``kind``), the material table, the per-instance material
-slots and entity handles, the wavefront engine's packed trace table (``pallas_tris``), the
-path engines' packed trace+shade tables (``fused``, ``fused_chunk``) and
-the LBVH (``bvh``), which takes their place when the scene is built with
-``build_bvh=True``. All
-instances are baked into one world-space soup, as in the reference (ref
-RayTracer.cu:1251-1715 is the two-level structure this replaces).
+slots and entity handles, the packed BTF tables (``btf``), the
+wavefront engine's packed trace table (``pallas_tris``), the path engines'
+packed trace+shade tables (``fused``, ``fused_chunk``) and the LBVH
+(``bvh``), which takes their place when the scene is built with
+``build_bvh=True``. All instances are baked into one world-space soup, as
+in the reference (ref RayTracer.cu:1251-1715 is the two-level structure
+this replaces).
 """
 
 from __future__ import annotations
@@ -50,12 +51,14 @@ class GeometryBuffers:
 
 @dataclasses.dataclass(frozen=True)
 class MaterialTable:
-    """Flat Default-material table (replaces SBT material records)."""
+    """Flat material table (replaces SBT material records)."""
 
     albedo: torch.Tensor  # (M, 3)
     roughness: torch.Tensor  # (M,)
     metallic: torch.Tensor  # (M,)
     emission: torch.Tensor  # (M,)
+    material_type: torch.Tensor  # (M,) int32 MaterialType
+    btf_index: torch.Tensor  # (M,) int32 slot in CompiledScene.btf, -1 none
 
 
 @dataclasses.dataclass(frozen=True)
@@ -66,6 +69,9 @@ class CompiledScene:
     # (I, 2) int64: the (lo, hi) 32-bit words of each instance's 64-bit
     # entity handle (the reference keeps them as uint32, which torch lacks)
     instance_handle: torch.Tensor
+    # ops/btf.py::PackedBTF of the scene's CompressedBTF materials, in
+    # btf_index order, or None
+    btf: object | None = None
     # (table (N, 12), sub_aabbs (N/32, 8), chunk_aabbs (>=8, 8)) from
     # ops/brute.py::pack_tri_table, K3's table; the reference's name.
     # Packed unless the scene is built with build_bvh=True

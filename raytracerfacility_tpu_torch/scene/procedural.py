@@ -2,7 +2,9 @@
 
 Port of ``raytracerfacility_tpu/scene/procedural.py``: the sorghum canopy
 (``build_canopy_scene`` and its plant and instance generators, BASELINE
-config 6) and ``build_strands_scene`` (BASELINE config 7). The same seeds
+config 6), ``build_strands_scene`` (BASELINE config 7) and
+``build_btf_sphere_scene`` with ``make_plane_under_sphere`` (the
+CompressedBTF sphere of BASELINE config 3 over a plane). The same seeds
 draw the same numpy random streams, so meshes and matrices equal the
 reference's.
 """
@@ -11,9 +13,10 @@ from __future__ import annotations
 
 import numpy as np
 
-from raytracerfacility_tpu_torch.enums import GeometryType, RendererType
+from raytracerfacility_tpu_torch.enums import GeometryType, MaterialType, RendererType
+from raytracerfacility_tpu_torch.mlvq.synthetic import synthetic_btf
 from raytracerfacility_tpu_torch.scene.materials import MaterialProperties
-from raytracerfacility_tpu_torch.scene.mesh import Mesh, make_plane
+from raytracerfacility_tpu_torch.scene.mesh import Mesh, make_plane, make_sphere
 from raytracerfacility_tpu_torch.scene.scene import RayTracerScene
 
 
@@ -200,3 +203,28 @@ def build_strands_scene(n_strands: int = 800, seed: int = 7) -> RayTracerScene:
         albedo_color=(0.55, 0.55, 0.55), roughness=1.0, metallic=0.0))
     scene.upsert_instance(6, version=0, geometry=4, material=5)
     return scene
+
+
+def build_btf_sphere_scene(seed: int = 2) -> RayTracerScene:
+    """A CompressedBTF (MLVQ) sphere over a grey plane (ref
+    procedural.py:237-258): the synthetic database of ``seed`` on the
+    config-3 sphere."""
+    scene = RayTracerScene()
+    scene.upsert_geometry(1, version=0, mesh=make_sphere(0.6, rings=24, sectors=48))
+    scene.upsert_material(2, version=0, material_type=MaterialType.COMPRESSED_BTF,
+                          btf=synthetic_btf(seed=seed))
+    scene.upsert_instance(3, version=0, geometry=1, material=2)
+    scene.upsert_geometry(4, version=0, mesh=make_plane_under_sphere())
+    scene.upsert_material(5, version=0, properties=MaterialProperties(
+        albedo_color=(0.5, 0.5, 0.5), roughness=1.0, metallic=0.0))
+    scene.upsert_instance(6, version=0, geometry=4, material=5)
+    return scene
+
+
+def make_plane_under_sphere() -> Mesh:
+    """A 3 x 3 plane 0.65 below the origin (ref procedural.py:261-268)."""
+    m = make_plane(3.0)
+    p = m.positions.copy()
+    p[:, 1] -= 0.65
+    return Mesh(positions=p, triangles=m.triangles, normals=m.normals,
+                tex_coords=m.tex_coords)

@@ -2,8 +2,8 @@
 
 Port of ``__graft_entry__._bench_scene`` (``__graft_entry__.py:8-70``),
 which the port cannot import: the reference's entry module pulls in JAX;
-of the scenes and cameras of ``bench.py::run_config6`` and
-``run_config7``; of the illumination workload of ``bench.py::run_config4``;
+of the scenes and cameras of ``bench.py::run_config3``, ``run_config6``
+and ``run_config7``; of the illumination workload of ``bench.py::run_config4``;
 of the instanced forest of ``scripts/bench_instanced.py``; and of the
 denoiser's held-out eval scenes of ``tests/test_denoiser_quality.py``
 (which the port cannot import either: the reference's tests pull in JAX).
@@ -13,7 +13,8 @@ from __future__ import annotations
 
 import numpy as np
 
-from raytracerfacility_tpu_torch.enums import RendererType
+from raytracerfacility_tpu_torch.enums import MaterialType, RendererType
+from raytracerfacility_tpu_torch.mlvq.synthetic import synthetic_btf
 from raytracerfacility_tpu_torch.models.pathtracer import RenderConfig
 from raytracerfacility_tpu_torch.models.renderer import EnvironmentProperties
 from raytracerfacility_tpu_torch.ops.camera import CameraProperties
@@ -89,6 +90,25 @@ def bench_scene(width: int, height: int, fov: float = 70.0):
     cam.look_at_target((0.0, 1.1, 2.6), (0.0, 0.8, 0.0))
     env = EnvironmentProperties(skylight_intensity=1.0)
     return scene, cam, env
+
+
+def btf_sphere(width: int = 256, height: int = 256):
+    """BASELINE config 3 (``bench.py:165-195 run_config3``): a sphere of
+    radius 0.6 (24 rings, 48 sectors, 2,304 triangles) with a CompressedBTF
+    material of ``synthetic_btf(seed=2)``, seen by a 60-degree camera at
+    (0, 0.4, 2.2) looking at the origin, under the flat Scene environment;
+    2 bounces, 1 spp, ``enable_btf``. Returns (scene store,
+    CameraProperties, EnvironmentProperties, RenderConfig)."""
+    scene = RayTracerScene()
+    scene.upsert_geometry(1, version=0, mesh=make_sphere(0.6, rings=24, sectors=48))
+    scene.upsert_material(2, version=0, material_type=MaterialType.COMPRESSED_BTF,
+                          btf=synthetic_btf(seed=2))
+    scene.upsert_instance(3, version=0, geometry=1, material=2)
+    cam = CameraProperties(fov=60.0, size=(width, height))
+    cam.look_at_target((0.0, 0.4, 2.2), (0.0, 0.0, 0.0))
+    config = RenderConfig(width=width, height=height, bounces=2, samples=1,
+                          enable_btf=True)
+    return scene, cam, EnvironmentProperties(), config
 
 
 def strands_scene(width: int, height: int, n_strands: int = 800, seed: int = 7):

@@ -312,8 +312,9 @@ def test_environment_dispatch(monkeypatch):
     cubemap or sky pool the segmented engine with the hook at any size
     (here 8x8, far below the segmented engine's 2^19 rays), a cubemap under
     SingleLightSource K2-SLS (it ignores the cubemap), the flat colour K2,
-    curves the wavefront engine; the camera facade passes the sky's sample
-    counts through; alpha testing, BTF and subsurface are still refused."""
+    curves and BTF renders the wavefront engine; the camera facade passes
+    the sky's sample counts through; alpha testing and subsurface are still
+    refused."""
     calls = []
     real_sorted, real_fused = pt.render_pool_sorted, pt.render_pool_fused
     monkeypatch.setattr(pt, "render_pool_sorted", lambda *a, **k: calls.append(
@@ -350,9 +351,17 @@ def test_environment_dispatch(monkeypatch):
     images = [facade.render(e, RayProperties(bounces=1)) for e in (sky, few)]
     assert calls == [("sorted", True)] * 2
     assert not np.array_equal(images[0], images[1])
-    for config in (dict(alpha_test=True), dict(enable_btf=True),
-                   dict(enable_subsurface=True)):
+    for config in (dict(alpha_test=True), dict(enable_subsurface=True)):
         with pytest.raises(NotImplementedError):
             pt.render_frame_counted(compiled, cam.state("cpu"), sky.state("cpu"),
                                     pt.RenderConfig(width=8, height=8, **config),
                                     pt.init_frame(8, 8, "cpu"))
+    # BTF shading is ported, on the wavefront engine only (ref
+    # pathtracer.py:887-910 keeps the sky pool off the segmented engine)
+    calls.clear()
+    frame, _ = pt.render_frame_counted(
+        compiled, cam.state("cpu"), sky.state("cpu"),
+        pt.RenderConfig(width=8, height=8, bounces=1, enable_btf=True,
+                        lighting_type=EnvironmentalLightingType.SKYDOME),
+        pt.init_frame(8, 8, "cpu"))
+    assert calls == [] and bool(torch.isfinite(frame.color).all())

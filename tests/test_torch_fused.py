@@ -108,7 +108,9 @@ def test_pack_material_table_layout():
         albedo=torch.tensor([[0.1, 0.2, 0.3], [0.4, 0.5, 0.6], [0.7, 0.8, 0.9]]),
         roughness=torch.tensor([0.5, 0.6, 0.7]),
         metallic=torch.tensor([0.0, 0.8, 0.2]),
-        emission=torch.tensor([0.0, 0.0, 2.0]))
+        emission=torch.tensor([0.0, 0.0, 2.0]),
+        material_type=torch.zeros(3, dtype=torch.int32),
+        btf_index=torch.full((3,), -1, dtype=torch.int32))
     t = fused.pack_material_table(mats)
     assert t.shape == (8, 8)
     assert torch.equal(t[:3, 0:3], mats.albedo)

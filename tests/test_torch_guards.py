@@ -1,15 +1,18 @@
 """Guards of the PyTorch port: it never imports JAX (the camera facade,
-the denoiser, the LiDAR scanner and the cubemap and sky environments
-included), a CUDA request never runs on the CPU, no wrapper falls back to
-its plain version off the CPU, and renders outside the ported envelope
-raise NotImplementedError."""
+the denoiser, the LiDAR scanner, the cubemap and sky environments and the
+BTF materials with their importer and ``.cbtf`` files included), a CUDA
+request never runs on the CPU, no wrapper falls back to its plain version
+off the CPU, and renders outside the ported envelope raise
+NotImplementedError."""
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import pathlib
 import subprocess
 import sys
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -23,11 +26,19 @@ from raytracerfacility_tpu_torch.enums import (
 )
 from raytracerfacility_tpu_torch.models import pathtracer as pt
 from raytracerfacility_tpu_torch.models.renderer import EnvironmentProperties
-from raytracerfacility_tpu_torch.ops import brute, environment, fused, inst, seg, traverse
+from raytracerfacility_tpu_torch.ops import (
+    brute,
+    btf,
+    environment,
+    fused,
+    inst,
+    seg,
+    traverse,
+)
 from raytracerfacility_tpu_torch.ops.bvh import BVH
 from raytracerfacility_tpu_torch.scene import MaterialProperties
 from raytracerfacility_tpu_torch.scene.builder import compile_shared_instanced
-from raytracerfacility_tpu_torch.scenes import bench_scene, strands_scene
+from raytracerfacility_tpu_torch.scenes import bench_scene, btf_sphere, strands_scene
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 
@@ -96,6 +107,13 @@ assert facade.denoiser.params is not None and img.shape == (8, 8, 4)
 assert PointCloudScanner(size=(0.5, 0.5), distance=(0.1, 0.1)).scan(
     scene.build("cpu"), position=(0.0, 1.0, 2.5)) > 0
 assert default_denoiser("cpu").denoise(*(torch.rand(8, 8, 3),) * 3).shape == (8, 8, 3)
+from raytracerfacility_tpu_torch.mlvq import import_btf_folder  # noqa: F401
+from raytracerfacility_tpu_torch.scenes import btf_sphere
+from raytracerfacility_tpu_torch.utils.serialization import load_cbtf  # noqa: F401
+scene, cam, env, cfg = btf_sphere(8, 8)
+frame, rays = render_frames_counted(scene.build("cpu"), cam.state("cpu"),
+                                    env.state("cpu"), cfg, init_frame(8, 8, "cpu"), 1)
+assert bool(torch.isfinite(frame.color).all()) and int(rays) > 0
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "raytracerfacility_tpu"))
 print("LOADED", bad)
@@ -176,6 +194,15 @@ def test_wrappers_do_not_fall_back_off_the_cpu():
                        torch.zeros((13, 256), device="meta"),
                        torch.zeros(256, dtype=torch.int32, device="meta"),
                        torch.zeros(256, dtype=torch.int64, device="meta"), 128)
+    btf_scene, _, _, _ = btf_sphere(8, 8)
+    packed = btf_scene.build("cpu").btf
+    meta = SimpleNamespace(btf=dataclasses.replace(packed, **{
+        k: getattr(packed, k).to("meta") for k in ("floats", "ints", "idesc", "fdesc")}))
+    with pytest.raises(ValueError):
+        btf.btf_colors(meta, torch.zeros(64, dtype=torch.bool, device="meta"),
+                       torch.zeros(64, dtype=torch.int32, device="meta"),
+                       torch.zeros((64, 2), device="meta"),
+                       *[torch.zeros((64, 3), device="meta")] * 4)
 
 
 @pytest.mark.parametrize("bad", ["perm_dtype", "perm_length", "block", "dtype",
@@ -366,14 +393,34 @@ def _render(scene, env_props, **config):
 
 
 @pytest.mark.parametrize("case", ["alpha_test", "btf_config", "subsurface_config"])
-def test_render_outside_envelope_raises(case):
-    """What the port still refuses."""
-    scene, _, env = bench_scene(8, 8)
+def test_render_outside_envelope_raises(case, monkeypatch):
+    """What the port still refuses: alpha testing and subsurface.
+    ``enable_btf`` is ported: on a scene without BTF materials it renders
+    on the wavefront engine (the path engines do not shade BTF) the frame
+    that engine renders without it."""
+    scene, cam, env = bench_scene(8, 8)
     config = {}
     if case == "alpha_test":
         config["alpha_test"] = True
     elif case == "btf_config":
-        config["enable_btf"] = True
+        compiled = scene.build("cpu")
+        cfg = pt.RenderConfig(width=8, height=8, bounces=1)
+        args = (cam.state("cpu"), env.state("cpu"))
+        wave, _ = pt.render_frame_counted(dataclasses.replace(compiled, fused=None),
+                                          *args, cfg, pt.init_frame(8, 8, "cpu"))
+        calls = []
+        for name in ("render_pool_fused", "render_pool_sorted"):
+            monkeypatch.setattr(pt, name, lambda *a, **k: calls.append(a))
+        real = pt.trace_radiance_counted
+        monkeypatch.setattr(pt, "trace_radiance_counted",
+                            lambda *a, **k: calls.append("wavefront") or real(*a, **k))
+        frame, rays = pt.render_frame_counted(
+            compiled, *args, dataclasses.replace(cfg, enable_btf=True),
+            pt.init_frame(8, 8, "cpu"))
+        assert calls == ["wavefront"] and int(rays) > 0
+        for name in ("color", "normal", "albedo"):
+            assert torch.equal(getattr(frame, name), getattr(wave, name)), name
+        return
     else:
         config["enable_subsurface"] = True
     with pytest.raises(NotImplementedError):
@@ -416,13 +463,30 @@ def test_miss_inputs_are_validated(bad):
     "texture", "btf_material", "vertex_color", "subsurface", "skinned",
     "tessellated_curve"])
 def test_scene_outside_envelope_raises(case):
-    scene, _, _ = bench_scene(8, 8)
+    """What the bake still refuses. A CompressedBTF material is ported:
+    without a database it bakes as the reference's does (slot -1, no
+    tables; its lanes shade as ones), without the path engines' tables,
+    and renders on the wavefront engine."""
+    scene, cam, env = bench_scene(8, 8)
     if case == "texture":
         scene.upsert_material(51, version=1,
                               albedo_texture=np.ones((4, 4, 4), np.float32))
     elif case == "btf_material":
         scene.upsert_material(51, version=1,
                               material_type=MaterialType.COMPRESSED_BTF)
+        compiled = scene.build("cpu")
+        slot = int(compiled.instance_material[
+            list(scene.instances).index(52)])  # the sphere's material
+        assert compiled.fused is None and compiled.btf is None
+        assert compiled.pallas_tris is not None
+        assert int(compiled.materials.material_type[slot]) == MaterialType.COMPRESSED_BTF
+        assert int(compiled.materials.btf_index[slot]) == -1
+        frame, rays = pt.render_frame_counted(
+            compiled, cam.state("cpu"), env.state("cpu"),
+            pt.RenderConfig(width=8, height=8, bounces=1, enable_btf=True),
+            pt.init_frame(8, 8, "cpu"))
+        assert bool(torch.isfinite(frame.color).all()) and int(rays) > 0
+        return
     elif case == "vertex_color":
         scene.upsert_material(51, version=1,
                               material_type=MaterialType.VERTEX_COLOR)
