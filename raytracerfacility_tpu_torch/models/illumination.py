@@ -34,6 +34,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from raytracerfacility_tpu_torch import tracing
 from raytracerfacility_tpu_torch.enums import EnvironmentalLightingType
 from raytracerfacility_tpu_torch.models.pathtracer import (
     RenderConfig,
@@ -148,37 +149,44 @@ def estimate_illumination_counted(
     _refuse(config)
     device = scene.device
     p, s = probes.num_probes, config.samples
-    # ray pool: (P, 2 faces, S samples)
-    probe_idx = (torch.arange(p, dtype=torch.int64, device=device)[:, None, None]
-                 + probe_offset)
-    face_idx = torch.arange(2, dtype=torch.int64, device=device)[None, :, None]
-    sample_idx = torch.arange(s, dtype=torch.int64, device=device)[None, None, :]
-    ray_id = (probe_idx * (2 * s) + face_idx * s + sample_idx) & _MASK32
-    rng = lcg_init(ray_id, torch.tensor(seed & _MASK32, device=device))
+    with tracing.span("estimator.prep"):
+        # ray pool: (P, 2 faces, S samples)
+        probe_idx = (torch.arange(p, dtype=torch.int64, device=device)[:, None, None]
+                     + probe_offset)
+        face_idx = torch.arange(2, dtype=torch.int64, device=device)[None, :, None]
+        sample_idx = torch.arange(s, dtype=torch.int64, device=device)[None, None, :]
+        ray_id = (probe_idx * (2 * s) + face_idx * s + sample_idx) & _MASK32
+        # a host-to-device copy from pageable memory: it waits for the queue
+        with tracing.span("estimator.sync.seed"):
+            seed_word = torch.tensor(seed & _MASK32, device=device)
+        rng = lcg_init(ray_id, seed_word)
 
-    # uniform barycentric coords, not folded into the triangle, exactly like
-    # the reference (IlluminationEstimation.cu:56-60 draws two raw uniforms)
-    rng, ca = lcg_next(rng)
-    rng, cb = lcg_next(rng)
-    w = (1.0 - ca - cb)[..., None]
-    ca, cb = ca[..., None], cb[..., None]
+        # uniform barycentric coords, not folded into the triangle, exactly
+        # like the reference (IlluminationEstimation.cu:56-60 draws two raw
+        # uniforms)
+        rng, ca = lcg_next(rng)
+        rng, cb = lcg_next(rng)
+        w = (1.0 - ca - cb)[..., None]
+        ca, cb = ca[..., None], cb[..., None]
 
-    def blend(a, b, c):
-        return w * a[:, None, None] + ca * b[:, None, None] + cb * c[:, None, None]
+        def blend(a, b, c):
+            return w * a[:, None, None] + ca * b[:, None, None] + cb * c[:, None, None]
 
-    position = blend(probes.a_position, probes.b_position, probes.c_position)
-    normal = blend(probes.a_normal, probes.b_normal, probes.c_normal)
-    # face 0 = front (+normal), face 1 = back (-normal)
-    normal = normal * torch.where(face_idx == 0, 1.0, -1.0)[..., None]
-    rng, ray_dir = sample_hemisphere(rng, normal)  # uniform variant
-    origin = position + normal * push_normal_distance
+        position = blend(probes.a_position, probes.b_position, probes.c_position)
+        normal = blend(probes.a_normal, probes.b_normal, probes.c_normal)
+        # face 0 = front (+normal), face 1 = back (-normal)
+        normal = normal * torch.where(face_idx == 0, 1.0, -1.0)[..., None]
+        rng, ray_dir = sample_hemisphere(rng, normal)  # uniform variant
+        origin = position + normal * push_normal_distance
 
     n_rays = p * 2 * s
     env_xla = sorted_env_compatible(scene, env, config)
     if fused_compatible(scene, env, config) or env_xla:
         sls = config.lighting_type == EnvironmentalLightingType.SINGLE_LIGHT_SOURCE
         env_vec = _env_vector(env)
-        env_vec[10] = _PROBE_TMIN
+        # a host scalar into a device tensor: a copy that waits for the queue
+        with tracing.span("estimator.sync.tmin"):
+            env_vec[10] = _PROBE_TMIN
         pool = (origin.reshape(n_rays, 3), ray_dir.reshape(n_rays, 3),
                 rng.reshape(n_rays),
                 torch.ones((n_rays,), dtype=torch.float32, device=device), env_vec)
@@ -202,26 +210,27 @@ def estimate_illumination_counted(
             scene, env, config, origin.reshape(n_rays, 3),
             ray_dir.reshape(n_rays, 3), rng.reshape(n_rays), _PROBE_TMIN)
         radiance = state.st[RR:RB + 1].T
-    path_radiance = radiance.reshape(p, 2, s, 3)
+    with tracing.span("estimator.reduce"):
+        path_radiance = radiance.reshape(p, 2, s, 3)
 
-    ndotl = torch.abs(dot(normal, ray_dir))[..., None]
-    # face masking per probe flags
-    face_on = torch.stack([probes.front_face, probes.back_face], dim=1)[..., None, None]
-    sample_energy = torch.where(face_on, path_radiance * ndotl, 0.0)  # (P, 2, S, 3)
-    weighted_dir = torch.where(
-        face_on,
-        ray_dir * torch.linalg.vector_norm(sample_energy, dim=-1, keepdim=True),
-        0.0)
+        ndotl = torch.abs(dot(normal, ray_dir))[..., None]
+        # face masking per probe flags
+        face_on = torch.stack([probes.front_face, probes.back_face], dim=1)[..., None, None]
+        sample_energy = torch.where(face_on, path_radiance * ndotl, 0.0)  # (P, 2, S, 3)
+        weighted_dir = torch.where(
+            face_on,
+            ray_dir * torch.linalg.vector_norm(sample_energy, dim=-1, keepdim=True),
+            0.0)
 
-    sample_count = torch.sum(face_on[:, :, 0, 0], dim=1) * s  # (P,)
-    total_energy = torch.sum(sample_energy, dim=(1, 2))  # (P, 3)
-    total_dir = torch.sum(weighted_dir, dim=(1, 2))  # (P, 3)
-    seen = (sample_count > 0)[:, None]
-    denom = torch.clamp(sample_count, min=1)[:, None].to(torch.float32)
-    energy = torch.where(seen, total_energy / denom, probes.energy)
-    norm = torch.linalg.vector_norm(total_dir, dim=-1, keepdim=True)
-    direction = torch.where(seen & (norm > 0),
-                            total_dir / torch.clamp(norm, min=1e-20), probes.direction)
+        sample_count = torch.sum(face_on[:, :, 0, 0], dim=1) * s  # (P,)
+        total_energy = torch.sum(sample_energy, dim=(1, 2))  # (P, 3)
+        total_dir = torch.sum(weighted_dir, dim=(1, 2))  # (P, 3)
+        seen = (sample_count > 0)[:, None]
+        denom = torch.clamp(sample_count, min=1)[:, None].to(torch.float32)
+        energy = torch.where(seen, total_energy / denom, probes.energy)
+        norm = torch.linalg.vector_norm(total_dir, dim=-1, keepdim=True)
+        direction = torch.where(seen & (norm > 0),
+                                total_dir / torch.clamp(norm, min=1e-20), probes.direction)
     return dataclasses.replace(probes, energy=energy, direction=direction), rays
 
 
@@ -304,6 +313,7 @@ class TriangleIlluminationEstimator:
         self.probes = concat_probes(groups)
         return self.probes
 
+    @tracing.spanned("estimator.call")
     def sample_light_probe_group(self, scene: CompiledScene, env: EnvironmentState,
                                  config: RenderConfig, seed: int = 0,
                                  push_normal_distance: float = 0.001) -> LightProbes:
@@ -315,10 +325,14 @@ class TriangleIlluminationEstimator:
                                             push_normal_distance)
         check_finite("EstimateIllumination", energy=self.probes.energy,
                      direction=self.probes.direction)
-        flux = torch.sum(self.probes.energy * self.probes.areas()[:, None], dim=0)
-        self.total_flux = flux.cpu().numpy()
-        self.average_flux = (self.total_flux / self.total_area
-                             if self.total_area > 0 else np.zeros(3, np.float32))
+        with tracing.span("estimator.reduce"):
+            flux = torch.sum(self.probes.energy * self.probes.areas()[:, None],
+                             dim=0)
+            with tracing.span("estimator.sync.flux"):
+                self.total_flux = flux.cpu().numpy()
+            self.average_flux = (self.total_flux / self.total_area
+                                 if self.total_area > 0
+                                 else np.zeros(3, np.float32))
         return self.probes
 
     def color_descendents_vertices(self) -> list[np.ndarray]:

@@ -43,6 +43,7 @@ import dataclasses
 
 import torch
 
+from raytracerfacility_tpu_torch import tracing
 from raytracerfacility_tpu_torch.enums import (
     EnvironmentalLightingType,
     MaterialType,
@@ -402,6 +403,7 @@ def sort_state_by_index(state: PathState, idx) -> PathState:
     return PathState(st=st, rng=rng)
 
 
+@tracing.spanned("wavefront.pool")
 def trace_radiance_counted(scene, env, config, origin, direction, rng, tmin):
     """Run the segment loop for a flat ray pool ((R, 3) rays, (R,) RNG
     states as uint32 values in int64) and return the final state and the
@@ -409,7 +411,9 @@ def trace_radiance_counted(scene, env, config, origin, direction, rng, tmin):
     pathtracer.py:806-844) on :func:`_sorted_state_loop`."""
     state = init_path_state(origin, direction, rng, tmin)
     state, rays = _sorted_state_loop(scene, env, config, state)
-    return state, torch.tensor(rays, dtype=torch.int64, device=origin.device)
+    # a host-to-device copy from pageable memory: it waits for the queue
+    with tracing.span("wavefront.sync.ray_total"):
+        return state, torch.tensor(rays, dtype=torch.int64, device=origin.device)
 
 
 def _state_slots(state: PathState, shape):
@@ -509,6 +513,7 @@ def _env_vector(env: EnvironmentState) -> torch.Tensor:
     return env_vec
 
 
+@tracing.spanned("frame.camera")
 def camera_pool(scene, camera, env, config, seed):
     """The camera rays of ``seed.shape[0]`` slots of the whole frame as ONE
     flat pool (the first half of ref ``_pool_fused_slots``,
@@ -624,6 +629,7 @@ def render_samples(
     return tuple(acc) + (rays,)
 
 
+@tracing.spanned("frame.finalize")
 def finalize_frame(
     camera: CameraState,
     config: RenderConfig,
@@ -709,6 +715,7 @@ def _frame_pool_group(config: RenderConfig, num_frames: int) -> int:
     return best
 
 
+@tracing.spanned("frame.call")
 def render_frames_counted(scene, camera, env, config, frame: FrameBuffers,
                           num_frames: int):
     """``num_frames`` progressive frames; returns the final frame and the

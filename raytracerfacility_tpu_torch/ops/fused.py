@@ -30,7 +30,7 @@ from typing import NamedTuple
 
 import torch
 
-from raytracerfacility_tpu_torch import kernels
+from raytracerfacility_tpu_torch import kernels, tracing
 from raytracerfacility_tpu_torch.ops import sweep
 from raytracerfacility_tpu_torch.ops.brute import DEAD, _trace_plain as _any_plain, tri_test
 from raytracerfacility_tpu_torch.ops.bvh import morton_codes
@@ -650,6 +650,7 @@ def fused_sls(tables, rays, rng, env, chunk: int, stats: bool = False):
                         rng, env, chunk, stats=(2,) if stats else None)
 
 
+@tracing.spanned("fused.pool")
 def render_pool_fused(tables, origin, direction, rng, valid, env_rgb,
                       bounces: int, chunk: int, lighting: int = 0):
     """Trace a flat ray pool through every path segment.

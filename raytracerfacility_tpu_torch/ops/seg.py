@@ -54,7 +54,7 @@ import os
 
 import torch
 
-from raytracerfacility_tpu_torch import kernels
+from raytracerfacility_tpu_torch import kernels, tracing
 from raytracerfacility_tpu_torch.ops import sweep
 from raytracerfacility_tpu_torch.ops.environment import miss_radiance
 from raytracerfacility_tpu_torch.ops.fused import (
@@ -130,18 +130,22 @@ def _morton_key(st, lo, inv_extent):
     return torch.where(st[ACT] > 0.0, key, _DEAD_KEY)
 
 
+@tracing.spanned("seg.reorder")
 def reorder(st, rng, orig, m: int, lo, inv_extent) -> int:
     """Stable-sort the first ``m`` rays by :func:`_morton_key`, in place,
     carrying the RNG and original-index planes. Rays past ``m`` must be
     dead: a stable sort of the whole pool would leave them where they
     are. Returns the live count, which is the length of the live prefix
-    after the sort (one device-to-host read)."""
+    after the sort (one device-to-host read, the span
+    ``seg.sync.live_count``)."""
     key = _morton_key(st[:, :m], lo, inv_extent)
     order = torch.argsort(key, stable=True)
     st[:, :m] = st[:, :m].index_select(1, order)
     rng[:m] = rng[:m].index_select(0, order)
     orig[:m] = orig[:m].index_select(0, order)
-    return int(torch.count_nonzero(key != _DEAD_KEY))
+    live = torch.count_nonzero(key != _DEAD_KEY)
+    with tracing.span("seg.sync.live_count"):
+        return int(live)
 
 
 def bperm_order(st, lo, inv_extent, bsize: int):
@@ -240,6 +244,7 @@ def _segment_plain(tables, env, st, rng, n, is_first, has_cont, miss=None):
     return aov
 
 
+@tracing.spanned("seg.k1")
 def segment(tables, env, st, rng, n: int, is_first: bool, has_cont: bool,
             chunk: int, stats: bool = False, miss=None):
     """One trace+shade segment over the first ``n`` rays of the pool
@@ -337,6 +342,7 @@ def _bperm_settings(bperm_rows, bperm_from, bperm_exact):
                  for v, (name, default) in zip(given, _BPERM_ENV))
 
 
+@tracing.spanned("seg.pool")
 def render_pool_sorted(tables, origin, direction, rng, valid, env_rgb,
                        bounces: int, chunk: int, presort: bool = False,
                        bperm_rows: int | None = None,
@@ -368,20 +374,7 @@ def render_pool_sorted(tables, origin, direction, rng, valid, env_rgb,
     bperm_rows, bperm_from, bperm_exact = _bperm_settings(
         bperm_rows, bperm_from, bperm_exact)
     device = origin.device
-    env = torch.zeros((16,), dtype=torch.float32, device=device)
-    env[: env_rgb.shape[0]] = env_rgb
-    n = origin.shape[0]
     bsize = bperm_rows * LANES
-    # the block reorder needs whole blocks: pad with dead rays
-    n_pad = -(-n // bsize) * bsize if bperm_rows > 0 else n
-    st = torch.zeros((NPLANES, n_pad), dtype=torch.float32, device=device)
-    st[:, :n] = init_state(origin, direction, valid)
-    rng_i = torch.zeros((n_pad,), dtype=torch.int32, device=device)
-    rng_i[:n] = to_int32(rng)
-    orig = torch.arange(n_pad, dtype=torch.int64, device=device)
-    spare = ((torch.empty_like(st), torch.empty_like(rng_i), torch.empty_like(orig))
-             if bperm_rows > 0 else None)
-    lo, inv_extent = _scene_bounds(tables[2])
 
     def run(st, rng_i, extent, is_first, has_cont):
         """K1 over [0, extent), then the miss environment's hook."""
@@ -390,27 +383,47 @@ def render_pool_sorted(tables, origin, direction, rng, valid, env_rgb,
         aov = segment(tables, env, st, rng_i, extent, is_first=is_first,
                       has_cont=has_cont, chunk=chunk, miss=miss)
         if miss is not None:
-            miss_radiance(st, st[RR:RB + 1], miss, env_state, lighting_type,
-                          atmos_samples, atmos_samples_light,
-                          out=aov[3:6] if is_first else None)
+            with tracing.span("seg.miss"):
+                miss_radiance(st, st[RR:RB + 1], miss, env_state, lighting_type,
+                              atmos_samples, atmos_samples_light,
+                              out=aov[3:6] if is_first else None)
         return aov
 
-    total = int(torch.count_nonzero(valid))
-    # every ray past `extent` is dead
-    extent = reorder(st, rng_i, orig, n_pad, lo, inv_extent) if presort else n
-    aov_orig = orig.clone() if presort else None
+    with tracing.span("seg.init"):
+        env = torch.zeros((16,), dtype=torch.float32, device=device)
+        env[: env_rgb.shape[0]] = env_rgb
+        n = origin.shape[0]
+        # the block reorder needs whole blocks: pad with dead rays
+        n_pad = -(-n // bsize) * bsize if bperm_rows > 0 else n
+        st = torch.zeros((NPLANES, n_pad), dtype=torch.float32, device=device)
+        st[:, :n] = init_state(origin, direction, valid)
+        rng_i = torch.zeros((n_pad,), dtype=torch.int32, device=device)
+        rng_i[:n] = to_int32(rng)
+        orig = torch.arange(n_pad, dtype=torch.int64, device=device)
+        spare = ((torch.empty_like(st), torch.empty_like(rng_i),
+                  torch.empty_like(orig)) if bperm_rows > 0 else None)
+        lo, inv_extent = _scene_bounds(tables[2])
+        valid_count = torch.count_nonzero(valid)
+        with tracing.span("seg.sync.valid_count"):
+            total = int(valid_count)
+        # every ray past `extent` is dead
+        extent = reorder(st, rng_i, orig, n_pad, lo, inv_extent) if presort else n
+        aov_orig = orig.clone() if presort else None
     aov = run(st, rng_i, extent, True, bounces >= 1)
     for s in range(1, bounces + 1):
         use_bperm = bperm_rows > 0 and s >= bperm_from and not (
             bperm_exact > 0
             and (s - bperm_from) % bperm_exact == bperm_exact - 1)
         if use_bperm:
-            _, perm, counts = bperm_order(st, lo, inv_extent, bsize)
-            planes = (st, rng_i, orig)
-            st, rng_i, orig = block_perm(perm, st, rng_i, orig, bsize, out=spare)
-            spare = planes
-            live_blocks, live = counts.tolist()
-            extent = live_blocks * bsize
+            with tracing.span("seg.reorder"):
+                _, perm, counts = bperm_order(st, lo, inv_extent, bsize)
+                planes = (st, rng_i, orig)
+                st, rng_i, orig = block_perm(perm, st, rng_i, orig, bsize,
+                                             out=spare)
+                spare = planes
+                with tracing.span("seg.sync.live_count"):
+                    live_blocks, live = counts.tolist()
+                extent = live_blocks * bsize
         else:
             live = extent = reorder(st, rng_i, orig, extent, lo, inv_extent)
         if live == 0:
@@ -418,15 +431,19 @@ def render_pool_sorted(tables, origin, direction, rng, valid, env_rgb,
         run(st, rng_i, extent, False, s < bounces)
         total += live
 
-    radiance = torch.empty((3, n_pad), dtype=torch.float32, device=device)
-    radiance[:, orig] = st[RR:RB + 1]
-    if presort:
-        # the rays past segment 0's launch are dead (no-hit AOVs); all go
-        # back to original order through segment 0's index map
-        full = torch.zeros((NAOV, n_pad), dtype=torch.float32, device=device)
-        full[6:9] = _NO_HIT
-        full[:, :aov.shape[1]] = aov
-        aov = torch.empty_like(full)
-        aov[:, aov_orig] = full
+    with tracing.span("seg.unsort"):
+        radiance = torch.empty((3, n_pad), dtype=torch.float32, device=device)
+        radiance[:, orig] = st[RR:RB + 1]
+        if presort:
+            # the rays past segment 0's launch are dead (no-hit AOVs); all
+            # go back to original order through segment 0's index map
+            full = torch.zeros((NAOV, n_pad), dtype=torch.float32, device=device)
+            full[6:9] = _NO_HIT
+            full[:, :aov.shape[1]] = aov
+            aov = torch.empty_like(full)
+            aov[:, aov_orig] = full
+        # a host-to-device copy from pageable memory: it waits for the queue
+        with tracing.span("seg.sync.ray_total"):
+            rays = torch.tensor(total, dtype=torch.int64, device=device)
     return (radiance[:, :n].T, aov[0:3, :n].T, aov[3:6, :n].T, aov[6:9, :n].T,
-            torch.tensor(total, dtype=torch.int64, device=device))
+            rays)

@@ -17,6 +17,8 @@ import os
 
 import torch
 
+from raytracerfacility_tpu_torch import tracing
+
 _enabled: bool | None = None
 
 
@@ -46,7 +48,9 @@ def check_finite(launch: str, **buffers) -> None:
         if buf is None or not torch.is_floating_point(buf):
             continue
         bad = ~torch.isfinite(buf)
-        count = int(bad.sum())
+        bad_count = bad.sum()
+        with tracing.span("validate.sync.finite"):
+            count = int(bad_count)
         if count:
             idx = tuple(int(i) for i in torch.nonzero(bad)[0])
             raise ValidationError(

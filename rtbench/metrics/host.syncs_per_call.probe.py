@@ -1,0 +1,11 @@
+"""Host syncs a call of the estimator: the program's spans named
+``<layer>.sync.<what>`` (each a host read or copy that waits for the
+device: the estimator's seed word, primary tmin and flux, the segmented
+engine's valid and live counts and ray total) in the traced stretch, over
+its calls."""
+
+from rtbench.core import spans
+
+
+def read(run):
+    return spans.syncs_per_call(run)
