@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's camera paths on one NVIDIA GPU.
 
-Run from the repository root with no arguments: ``python3 chip_smoke.py``.
+Run from the repository root with no arguments: ``python3 chip_smoke.py``
+(``--only tea``: the build and the RNG seeding kernel's phase alone).
 It builds the CUDA kernels from ``raytracerfacility_tpu_torch/csrc``,
 holds each kernel against its plain PyTorch version on the card (at small
 sizes, then at the shapes its path gives it), and drives each path through
@@ -67,6 +68,11 @@ its kernels:
   against ``ops/btf.py::_btf_colors_plain``, the frame against the same
   render with the plain decode, Mrays/s, a profile, the decode's and K3's
   times and bounds; the same scene under SingleLightSource.
+- the RNG seeding kernel (``tea_init_kernel``, ``csrc/rng.cu``) behind
+  ``ops/rng.py::lcg_init`` at the 1080p camera pool and config 4's probe
+  pools at 8 and 1 samples, bit for bit against its plain version, with
+  its time, its bound and the plain version's time; every counted path
+  also counts its seeding launches (``counted(..., seeds=)``).
 
 K2 and K2-SLS must equal their plain versions on all 12 output planes of
 every ray (K2-SLS at least on ``HIT_AGREE`` of them), and their work
@@ -1143,7 +1149,7 @@ def canopy_phase(device, totals):
     o, d = _primary_rays(cam, C6, C6, device)
     (res, iid), launches = counted(
         lambda: inst.trace_closest_instanced(tables, o, d, INST_TMIN, INST_TMAX),
-        {"inst_trace_kernel": 1}, totals)
+        {"inst_trace_kernel": 1}, totals, seeds=0)
     n = o.shape[0]
     world_tris = sum(
         g.mesh.num_triangles * (len(g.instance_matrices) if g.instance_matrices is not None else 1)
@@ -1228,7 +1234,7 @@ def forest_phase(device, totals):
     o, d, tmin, tmax = (torch.from_numpy(x).to(device) for x in rays)
     (res, iid), launches = counted(
         lambda: inst.trace_closest_instanced(tables, o, d, tmin, tmax),
-        {"inst_trace_kernel": 1}, totals)
+        {"inst_trace_kernel": 1}, totals, seeds=0)
     torch.cuda.synchronize()
     peak_mib = torch.cuda.max_memory_allocated(device) / 2**20
     n = o.shape[0]
@@ -1867,7 +1873,8 @@ def illumination_phase(device, totals, render_1080p, frame_1080p, rays_1080p):
                 expect["block_perm_kernel"] = blocks
             (out, rays), launches = counted(
                 lambda: estimate_illumination_counted(compiled, env_s, config, probes,
-                                                      seed=C4_SEED), expect, totals)
+                                                      seed=C4_SEED), expect, totals,
+                seeds=1)
             if rows != "0" and exact == "0":
                 k6_launches = capture_k6(sample)
             med, walls, _ = median_calls(lambda: sample().energy.shape[0])
@@ -1906,7 +1913,7 @@ def illumination_phase(device, totals, render_1080p, frame_1080p, rays_1080p):
     (w_out, w_rays), launches = counted(
         lambda: estimate_illumination_counted(walker, env_s, config, probes,
                                               seed=C4_SEED),
-        {"bvh_trace_kernel<false>": None}, totals)
+        {"bvh_trace_kernel<false>": None}, totals, seeds=1)
     est_w = TriangleIlluminationEstimator(total_area=est.total_area)
 
     def sample_w():
@@ -1952,7 +1959,8 @@ def illumination_phase(device, totals, render_1080p, frame_1080p, rays_1080p):
     with _bperm(str(BPERM_ROWS), "0"):
         (frame_b, rays_b), launches = counted(
             render_1080p, {"seg_segment_kernel": (BOUNCES + 1) * FRAMES,
-                           "block_perm_kernel": BOUNCES * FRAMES}, totals)
+                           "block_perm_kernel": BOUNCES * FRAMES}, totals,
+            seeds=FRAMES)
         same = all(torch.equal(getattr(frame_b, k), getattr(frame_1080p, k))
                    for k in ("color", "normal", "albedo")) and int(rays_b) == rays_1080p
         print(f"  1080p with bperm {BPERM_ROWS}: launches {launches}, {int(rays_b)} "
@@ -2184,7 +2192,7 @@ def config5_phase(device, totals, smi):
     k3_scan = scanner.construct_point_cloud(), scanner.handles
     bvh_scene = scene.build(device, build_bvh=True)
     _, launches = counted(lambda: scanner.scan(bvh_scene, position=C5_POSITION),
-                          {"bvh_trace_kernel<false>": 1}, totals)
+                          {"bvh_trace_kernel<false>": 1}, totals, seeds=0)
     print(f"  K5 vs plain on every beam of the LBVH scan, launches {launches}")
     _, (_, prim5, _), _, _ = check_k5(bvh_scene.bvh, planes, n, False,
                                       "config 5 scan")
@@ -3125,6 +3133,85 @@ def btf_phase(device, totals, smi):
                    "bound_by": k3_by, "rays": k3_n, "max_abs_err": k3_err}}
 
 
+# ---------------------------------------------------------------------------
+# The RNG seeding kernel (phase 27; ``python3 chip_smoke.py --only tea``
+# runs phases 0, 1 and 27 alone): ``lcg_init`` at the main path's pools,
+# the 1080p camera's (one frame, a per-slot seed) and config 4's probe
+# pools at 8 and 1 samples (ray ids, a 0-dim seed), against its plain
+# version bit for bit
+SEED_KERNEL = "tea_init_kernel"
+TEA_PROBES = 110_976  # config 4's probes (bench.py:197-241)
+TEA_SEED = 0x9E3779B1 + 5
+# the fewest 32-bit integer instructions of the TEA hash a word: 16 rounds
+# x 2 halves x 5 (a shift-left-add and a shift-right-add, one instruction
+# each, LEA and LEA.HI; the add of the round's sum; a three-way xor, LOP3;
+# the accumulating add), of the source's 8 operations a half; the index
+# arithmetic not counted
+TEA_OPS = 160
+# H100 SXM integer instructions a second: 4 warp-instructions dispatched an
+# SM a clock (128 lanes), the ALU pipe's 64 lanes (shifts, LEA, LOP3) beside
+# the FMA pipe's 64 (IMAD and the integer adds nvcc moves there)
+PEAK_INT32 = 132 * 128 * 1.98e9
+
+
+def tea_phase(device):
+    """Phase 27: ``tea_init_kernel`` at each pool: bit for bit against
+    ``ops/rng.py::_lcg_init_plain`` on the card, one launch a call; its
+    device time (ten launches queued behind a device sleep, the median of
+    five such timings) and a wrapper call's (CUDA events around one call);
+    its bound (16 bytes a word, read and written once, plus the seed words,
+    at PEAK_BYTES, against TEA_OPS instructions a word at PEAK_INT32); the
+    plain version's device time (one call behind a sleep, its 386 launches
+    queued) and a call's. Returns {pool: numbers}."""
+    import torch
+
+    from raytracerfacility_tpu_torch import kernels
+    from raytracerfacility_tpu_torch.ops import rng
+
+    pixel = torch.arange(HEIGHT * WIDTH, dtype=torch.int64,
+                         device=device).reshape(HEIGHT, WIDTH)
+    seed = torch.full((1, 1, 1), TEA_SEED, dtype=torch.int64, device=device)
+    frame = (1, HEIGHT, WIDTH)
+    pools = {f"{WIDTH}x{HEIGHT} camera pool": (pixel.expand(frame), seed.expand(frame))}
+    for samples in (8, 1):
+        ray_id = torch.arange(TEA_PROBES * 2 * samples, dtype=torch.int64,
+                              device=device).reshape(TEA_PROBES, 2, samples)
+        pools[f"config 4 probe pool, {samples} spp"] = (
+            ray_id, torch.tensor(TEA_SEED, dtype=torch.int64, device=device))
+    out = {}
+    for what, (val0, val1) in pools.items():
+        kernels.reset_launches()
+        got = rng.lcg_init(val0, val1)
+        want = rng._lcg_init_plain(val0, val1)
+        if kernels.LAUNCHES[SEED_KERNEL] != 1:
+            raise AssertionError(f"{what}: {kernels.LAUNCHES[SEED_KERNEL]} launches")
+        if got.dtype != torch.int64 or not torch.equal(got, want):
+            raise AssertionError(f"{what}: the kernel differs from the plain "
+                                 f"version on {int((got != want).sum())} words")
+        n = got.numel()
+        _, _, run = rng.tea_inputs(val0, val1)
+        nbytes = 16 * n + 8 * (n // run)
+        t_bytes, t_ops = nbytes / PEAK_BYTES, n * TEA_OPS / PEAK_INT32
+        kernel = [_device_ms(lambda: rng.lcg_init(val0, val1)) for _ in range(5)]
+        plain = [_device_ms(lambda: rng._lcg_init_plain(val0, val1), calls=1)
+                 for _ in range(5)]
+        call_ms, _ = _median_ms(lambda: rng.lcg_init(val0, val1))
+        plain_call_ms, _ = _median_ms(lambda: rng._lcg_init_plain(val0, val1))
+        out[what] = {
+            "words": n, "run": run, "ms": sorted(kernel)[2], "ms_runs": kernel,
+            "call_ms": call_ms, "bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "int32_instructions": n * TEA_OPS,
+            "plain_ms": sorted(plain)[2], "plain_call_ms": plain_call_ms}
+        r = out[what]
+        print(f"  {what}: {n} words (a seed word a run of {run}), equal bit for "
+              f"bit; kernel {r['ms']:.4f} ms (runs {', '.join(f'{t:.4f}' for t in kernel)}), "
+              f"a wrapper call {call_ms:.4f} ms; bound {r['bound_ms']:.4f} ms by "
+              f"{r['bound_by']} ({nbytes} bytes, {n * TEA_OPS} INT32 instructions); "
+              f"plain {r['plain_ms']:.4f} ms on the device, a call {plain_call_ms:.4f} ms")
+    return out
+
+
 def ptxas_summary(log):
     """{kernel: "R registers, S/L bytes spill stores/loads, B bytes static
     smem"} from nvcc's ``-Xptxas -v`` log (the sweep kernels also take 4
@@ -3161,16 +3248,24 @@ def ptxas_summary(log):
     return names
 
 
-def counted(render, expect, totals):
+def counted(render, expect, totals, seeds=None):
     """Drive one path with every launch counter set to 0 just before and
     read just after; raise unless exactly the kernels in ``expect`` (name
-    -> required count, or None for "at least one") were launched. Adds the
-    counts to ``totals`` and returns the path's result and its counts."""
+    -> required count, or None for "at least one") were launched. The RNG
+    seeding kernel is checked apart: ``seeds`` launches of it (None: at
+    least one; 0 for a path handed its rays), left out of the counts
+    returned. Adds the counts to ``totals`` and returns the path's result
+    and its counts."""
     from raytracerfacility_tpu_torch import kernels
 
     kernels.reset_launches()
     out = render()
     launches = dict(kernels.LAUNCHES)
+    n_seeds = launches.pop(SEED_KERNEL)
+    if (seeds is None and n_seeds < 1) or (seeds is not None and n_seeds != seeds):
+        raise AssertionError(f"{n_seeds} {SEED_KERNEL} launches, expected "
+                             f"{'at least one' if seeds is None else seeds}")
+    totals[SEED_KERNEL] = totals.get(SEED_KERNEL, 0) + n_seeds
     for name, n in launches.items():
         want = expect.get(name, 0)
         if (want is None and n < 1) or (want is not None and n != want):
@@ -3179,8 +3274,27 @@ def counted(render, expect, totals):
     return out, launches
 
 
-def main() -> int:
+def tea_row(tea, ptxas):
+    """The kernels line's row of ``tea_init_kernel``, at the 1080p pool."""
+    pool = tea[f"{WIDTH}x{HEIGHT} camera pool"]
+    return {"name": SEED_KERNEL, "route": "cuda",
+            "source": "raytracerfacility_tpu_torch/csrc/rng.cu",
+            "replaces": "none: XLA glue raytracerfacility_tpu/ops/rng.py::lcg_init",
+            "launches": None, "max_abs_err": 0,
+            **{k: pool[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+            "library_ms": None, "shape": f"{WIDTH}x{HEIGHT} camera pool",
+            "shapes": tea, "ptxas": ptxas.get(SEED_KERNEL)}
+
+
+def main(argv=None) -> int:
+    import argparse
+
     import torch
+
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--only", choices=["tea"],
+                        help="run phases 0 and 1 and this kernel's phase alone")
+    args = parser.parse_args(argv)
 
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; the port's kernels need one")
@@ -3215,6 +3329,13 @@ def main() -> int:
         print(f"  {name}: {info}")
     for name in kernels.SOURCES:
         kernels.library(name)
+    if args.only == "tea":
+        print("phase 27: tea_init_kernel vs plain at the main path's pools")
+        print(json.dumps({"kernels": [tea_row(tea_phase(device), ptxas)]}))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
 
     # phase 2, 3: each path kernel against its plain version, small
     print("phase 2: K1 seg_segment_kernel vs plain, 256x256, 4 segments")
@@ -3236,7 +3357,8 @@ def main() -> int:
 
     t0 = time.perf_counter()
     (frame, rays), after4 = counted(
-        render_1080p, {"seg_segment_kernel": (BOUNCES + 1) * FRAMES}, totals)
+        render_1080p, {"seg_segment_kernel": (BOUNCES + 1) * FRAMES}, totals,
+        seeds=FRAMES)
     rays = int(rays)
     cold_s = time.perf_counter() - t0
     color = frame.color[..., :3]
@@ -3554,6 +3676,9 @@ def main() -> int:
     print("phase 26: BASELINE config 3, the CompressedBTF sphere, on the wavefront "
           "engine (K3 and btf_decode_kernel)")
     c3 = btf_phase(device, totals, smi.splitlines()[0])
+    # phase 27: the RNG seeding kernel at the main path's pools
+    print("phase 27: tea_init_kernel vs plain at the main path's pools")
+    tea = tea_phase(device)
 
     def row(name, source, replaces, err, ms, plain_ms, bnd, by):
         return {"name": name, "route": "cuda",
@@ -3665,6 +3790,7 @@ def main() -> int:
                    f"rays in {k6['config 4']['blocks']} blocks; library_ms: "
                    "index_select of each plane set on its block view",
              at_1080p=k6["1080p"]),
+        dict(tea_row(tea, ptxas), launches=totals.get(SEED_KERNEL, 0)),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

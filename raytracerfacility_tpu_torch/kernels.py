@@ -32,7 +32,8 @@ import time
 _CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 # library name -> source file
 SOURCES = {"path": "path.cu", "brute": "brute.cu", "inst": "inst.cu",
-           "bvh": "bvh.cu", "perm": "perm.cu", "env": "env.cu", "btf": "btf.cu"}
+           "bvh": "bvh.cu", "perm": "perm.cu", "env": "env.cu", "btf": "btf.cu",
+           "rng": "rng.cu"}
 BUILD_DIR = pathlib.Path(__file__).resolve().parent.parent / "build" / "rtf_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -45,7 +46,8 @@ LAUNCHES = {"seg_segment_kernel": 0, "seg_segment_kernel<miss>": 0,
             "brute_trace_kernel<true>": 0, "inst_trace_kernel": 0,
             "bvh_trace_kernel<false>": 0, "bvh_trace_kernel<true>": 0,
             "block_perm_kernel": 0, "miss_compact_kernel": 0,
-            "miss_radiance_kernel": 0, "btf_decode_kernel": 0}
+            "miss_radiance_kernel": 0, "btf_decode_kernel": 0,
+            "tea_init_kernel": 0}
 
 _libs: dict = {}
 
@@ -122,6 +124,7 @@ _ARGTYPES = {
     "perm": {"rtf_block_perm": (7, 3)},
     "env": {"rtf_miss_compact": (3, 1), "rtf_miss_radiance": (7, 9)},
     "btf": {"rtf_btf_decode": (13, 2)},
+    "rng": {"rtf_tea_init": (3, 2)},
 }
 
 
