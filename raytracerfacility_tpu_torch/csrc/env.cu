@@ -20,7 +20,10 @@
 // warp counts its own (__ballot_sync, __popc for the lanes' offsets) and
 // each block of 512 lanes takes its place in `list` with one atomicAdd on
 // `count`, which stays in device memory (one atomic a warp, 64.8k on a
-// 1080p launch, serialised on the one address: 0.04 ms). Then
+// 1080p launch, serialised on the one address: 0.04 ms). Given a `tally`,
+// the block adds its count to that running int64 total too (one more
+// atomicAdd a block with a missed lane), which also stays on the device
+// until the host reads it outside the timed path. Then
 // miss_radiance_kernel<mode> runs over the list alone, on a grid that fills
 // the card and strides over the list, reading the count on the device: the
 // host reads nothing between the launches. The list's order is that of the
@@ -296,12 +299,14 @@ __device__ void cubemap(const float* __restrict__ faces, int h, int w,
 }
 
 // miss: (n,); list: (n,) int32, the missed lanes appended; count: the
-// number appended (set to 0 before the launch). Each warp counts its
-// missed lanes (__ballot_sync, __popc), the block's first thread lays the
-// warps out and takes the block's place in the list with one atomicAdd.
+// number appended (set to 0 before the launch); tally: a running int64
+// total the count is added to, or null. Each warp counts its missed lanes
+// (__ballot_sync, __popc), the block's first thread lays the warps out and
+// takes the block's place in the list with one atomicAdd.
 __global__ void __launch_bounds__(kCompactThreads)
 miss_compact_kernel(const float* __restrict__ miss, int* __restrict__ list,
-                    int* __restrict__ count, int n) {
+                    int* __restrict__ count,
+                    unsigned long long* __restrict__ tally, int n) {
   __shared__ int warp_base[kCompactThreads / 32];
   __shared__ int block_base;
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
@@ -318,6 +323,8 @@ miss_compact_kernel(const float* __restrict__ miss, int* __restrict__ list,
       total += c;
     }
     block_base = total > 0 ? atomicAdd(count, total) : 0;
+    if (total > 0 && tally != nullptr)
+      atomicAdd(tally, (unsigned long long)total);
   }
   __syncthreads();
   if (missed)
@@ -411,14 +418,16 @@ cudaError_t fill_blocks(Kernel kernel, int mode, int& blocks) {
 
 extern "C" {
 
-int rtf_miss_compact(const void* miss, void* list, void* count, int n,
-                     void* stream) {
+// tally: an int64 running total the count is added to, or null.
+int rtf_miss_compact(const void* miss, void* list, void* count, void* tally,
+                     int n, void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
   const cudaError_t err = cudaMemsetAsync(count, 0, sizeof(int), s);
   if (err != cudaSuccess || n <= 0) return (int)err;
   const int blocks = (n + rtf::kCompactThreads - 1) / rtf::kCompactThreads;
   rtf::miss_compact_kernel<<<blocks, rtf::kCompactThreads, 0, s>>>(
-      (const float*)miss, (int*)list, (int*)count, n);
+      (const float*)miss, (int*)list, (int*)count,
+      (unsigned long long*)tally, n);
   return (int)cudaGetLastError();
 }
 

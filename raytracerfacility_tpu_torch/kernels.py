@@ -16,7 +16,10 @@ grazing accepts); no ``--use_fast_math``, so division and ``sqrtf`` stay
 IEEE and the double ``sin``/``cos`` stay the accurate library versions.
 
 ``LAUNCHES`` counts kernel launches by kernel name; each wrapper adds one
-where it launches its kernel.
+where it launches its kernel. ``MISSED_RAYS`` holds, for each device, the
+running count of the rays the miss hook found missed
+(``ops/environment.py::missed_rays``): a tensor on that device, so the
+count costs the timed path no host read. ``reset_launches`` clears both.
 """
 
 from __future__ import annotations
@@ -49,12 +52,18 @@ LAUNCHES = {"seg_segment_kernel": 0, "seg_segment_kernel<miss>": 0,
             "miss_radiance_kernel": 0, "btf_decode_kernel": 0,
             "tea_init_kernel": 0}
 
+# device -> (2,) int64 tensor on it: the missed rays whose light the hook
+# did not and did write out (ops/environment.py::missed_rays)
+MISSED_RAYS: dict = {}
+
 _libs: dict = {}
 
 
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+    for tally in MISSED_RAYS.values():
+        tally.zero_()
 
 
 def blocks_for(n: int) -> int:
@@ -122,7 +131,7 @@ _ARGTYPES = {
     "inst": {"rtf_inst_trace": (21, 5)},
     "bvh": {"rtf_bvh_trace": (13, 4)},
     "perm": {"rtf_block_perm": (7, 3)},
-    "env": {"rtf_miss_compact": (3, 1), "rtf_miss_radiance": (7, 9)},
+    "env": {"rtf_miss_compact": (4, 1), "rtf_miss_radiance": (7, 9)},
     "btf": {"rtf_btf_decode": (13, 2)},
     "rng": {"rtf_tea_init": (3, 2)},
 }

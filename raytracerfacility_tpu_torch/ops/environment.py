@@ -15,7 +15,9 @@ place: ``miss_compact_kernel`` and ``miss_radiance_kernel``
 (``csrc/env.cu``) on the card, the torch functions of this module on the
 CPU. It replaces no TPU kernel: the
 reference computes the cubemap and the sky in XLA between its kernel
-launches (ref pallas_seg.py:1035-1060).
+launches (ref pallas_seg.py:1035-1060). Its host stages are the spans
+``env.params``, ``env.compact`` and ``env.radiance``, and the rays it found
+missed add up on the device (:func:`missed_rays`).
 
 The Nishita sky keeps the reference's vectorised semantics rather than the
 original CUDA march's ``break``: the optical depth along the view ray is
@@ -34,7 +36,7 @@ import math
 import numpy as np
 import torch
 
-from raytracerfacility_tpu_torch import kernels
+from raytracerfacility_tpu_torch import kernels, tracing
 from raytracerfacility_tpu_torch.enums import EnvironmentalLightingType
 from raytracerfacility_tpu_torch.ops.math3d import pow64, true_div
 from raytracerfacility_tpu_torch.ops.texture import sample_cubemap
@@ -347,10 +349,12 @@ def env_params(env: EnvironmentState) -> torch.Tensor:
 
 
 def _miss_radiance_plain(state, radiance, miss, env, lighting_type, samples,
-                         samples_light, out):
+                         samples_light, out, tally=None):
     """Plain version of :func:`miss_radiance`: the torch functions of this
-    module on the missed rays only, in chunks of at most PLAIN_CHUNK rays."""
-    idx = torch.nonzero(miss > 0.0)[:, 0]
+    module on the missed rays only, in chunks of at most PLAIN_CHUNK rays;
+    their count added to ``tally`` when given."""
+    listed, count = _compact_misses_plain(miss, tally)
+    idx = listed[:int(count)].to(torch.int64)
     for lo in range(0, idx.shape[0], PLAIN_CHUNK):
         c = idx[lo:lo + PLAIN_CHUNK]
         light = calculate_environmental_light(
@@ -361,39 +365,79 @@ def _miss_radiance_plain(state, radiance, miss, env, lighting_type, samples,
             out[:, c] = light
 
 
-def _compact_misses_plain(miss):
+def _compact_misses_plain(miss, tally=None):
     """Plain version of :func:`compact_misses`: the missed lanes in
     order."""
     n = miss.shape[0]
     idx = torch.nonzero(miss > 0.0)[:, 0].to(torch.int32)
     missed = torch.zeros((n,), dtype=torch.int32, device=miss.device)
     missed[:idx.shape[0]] = idx
-    return missed, torch.tensor([idx.shape[0]], dtype=torch.int32, device=miss.device)
+    count = torch.tensor([idx.shape[0]], dtype=torch.int32, device=miss.device)
+    if tally is not None:
+        tally += count
+    return missed, count
 
 
-def compact_misses(miss):
+def compact_misses(miss, tally=None):
     """The lanes i of a contiguous (n,) float32 miss plane with ``miss[i] >
     0``: ((n,) int32, whose first ``count`` entries are those lanes; (1,)
-    int32 count), both on the plane's device. On the H100
-    ``miss_compact_kernel`` (``csrc/env.cu``) appends them with one atomic
-    add a block of 512 lanes, in no set order, and the count stays on the
-    device (the host reads neither); on the CPU the plain version lists
-    them in order."""
+    int32 count), both on the plane's device. ``tally``, a (1,) int64
+    tensor on that device, gets the count added (the miss hook's running
+    total, :func:`missed_rays`). On the H100 ``miss_compact_kernel``
+    (``csrc/env.cu``) appends the lanes with one atomic add a block of 512
+    lanes, in no set order, and adds the block's count to ``tally`` with
+    one more; the count and the tally stay on the device (the host reads
+    neither); on the CPU the plain version lists them in order."""
     if miss.dim() != 1 or miss.dtype != torch.float32 or not miss.is_contiguous():
         raise ValueError("compact_misses takes a contiguous (n,) float32 plane")
+    if tally is not None and (tally.shape != (1,) or tally.dtype != torch.int64
+                              or tally.device != miss.device):
+        raise ValueError("compact_misses adds to a (1,) int64 tally on the "
+                         "plane's device")
     if miss.device.type == "cpu":
-        return _compact_misses_plain(miss)
+        return _compact_misses_plain(miss, tally)
     if miss.device.type != "cuda":
         raise ValueError(f"no kernel for device {miss.device}")
     n = miss.shape[0]
     missed = torch.empty((n,), dtype=torch.int32, device=miss.device)
     count = torch.empty((1,), dtype=torch.int32, device=miss.device)
     err = kernels.library("env").rtf_miss_compact(
-        miss.data_ptr(), missed.data_ptr(), count.data_ptr(), n,
+        miss.data_ptr(), missed.data_ptr(), count.data_ptr(),
+        tally.data_ptr() if tally is not None else None, n,
         ctypes.c_void_p(torch.cuda.current_stream(miss.device).cuda_stream))
     kernels.LAUNCHES["miss_compact_kernel"] += 1
     kernels.check(err, "miss_compact_kernel")
     return missed, count
+
+
+def _device_key(device) -> torch.device:
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+def _missed_tally(device, written_out: bool) -> torch.Tensor:
+    """The (1,) slot of ``kernels.MISSED_RAYS[device]`` a hook call adds its
+    missed rays to: [1] when it writes their light out, else [0]; the
+    tensor is made on the device's first call."""
+    tally = kernels.MISSED_RAYS.get(device)
+    if tally is None:
+        tally = kernels.MISSED_RAYS[device] = torch.zeros((2,), dtype=torch.int64,
+                                                          device=device)
+    return tally[1:] if written_out else tally[:1]
+
+
+def missed_rays(device, written_out: bool = False) -> int:
+    """Rays that :func:`miss_radiance` found missed on ``device`` since the
+    last ``kernels.reset_launches()``; with ``written_out`` only those whose
+    light it also wrote to ``out`` (the segmented engine's segment 0, whose
+    light is the albedo AOV). Reads the device: a host sync, for outside
+    the timed path."""
+    tally = kernels.MISSED_RAYS.get(_device_key(device))
+    if tally is None:
+        return 0
+    return int(tally[1] if written_out else tally.sum())
 
 
 def check_miss_inputs(state, radiance, miss, out, cubemap, device) -> None:
@@ -449,11 +493,19 @@ def miss_radiance(state, radiance, miss, env: EnvironmentState, lighting_type,
     lane, which pass the running optical depths from lane to lane and
     gather the weights in sample order through shared memory, and each
     warp finishes its rays 32 at a time, one a lane. A cubemap fetch is
-    bound by its bytes (four texels a ray), one thread a missed ray."""
+    bound by its bytes (four texels a ray), one thread a missed ray.
+
+    The count of missed rays is added on the device to
+    :func:`missed_rays`'s running total (by the compaction, with no launch
+    and no host read of its own). Host stages, as spans: ``env.params``
+    (the parameter vector), ``env.compact`` and ``env.radiance`` (each
+    launch; on the CPU the plain version is one ``env.radiance``)."""
     mode = _mode(env, lighting_type)
     if miss.device.type == "cpu":
-        _miss_radiance_plain(state, radiance, miss, env, lighting_type, samples,
-                             samples_light, out)
+        with tracing.span("env.radiance"):
+            _miss_radiance_plain(state, radiance, miss, env, lighting_type, samples,
+                                 samples_light, out,
+                                 _missed_tally(miss.device, out is not None))
         return
     if miss.device.type != "cuda":
         raise ValueError(f"no kernel for device {miss.device}")
@@ -462,15 +514,18 @@ def miss_radiance(state, radiance, miss, env: EnvironmentState, lighting_type,
     check_miss_inputs(state, radiance, miss, out, cubemap, device)
     if samples < 1 or samples_light < 1:
         raise ValueError("the sky needs at least one view and one light sample")
-    params = env_params(env)
+    with tracing.span("env.params"):
+        params = env_params(env)
     if params.device != device:
         raise ValueError(f"the environment lies on {params.device}, not {device}")
     n = miss.shape[0]
     if n == 0:
         return
-    missed, count = compact_misses(miss)
-    _launch_radiance(state, radiance, missed, count, n, params, cubemap, mode,
-                     samples, samples_light, out)
+    with tracing.span("env.compact"):
+        missed, count = compact_misses(miss, _missed_tally(device, out is not None))
+    with tracing.span("env.radiance"):
+        _launch_radiance(state, radiance, missed, count, n, params, cubemap, mode,
+                         samples, samples_light, out)
 
 
 def _launch_radiance(state, radiance, missed, count, n, params, cubemap, mode,
