@@ -73,6 +73,12 @@ its kernels:
   pools at 8 and 1 samples, bit for bit against its plain version, with
   its time, its bound and the plain version's time; every counted path
   also counts its seeding launches (``counted(..., seeds=)``).
+- the exact reorder's kernels (``reorder_key_kernel``,
+  ``reorder_gather_kernel``, ``csrc/perm.cu``) on every reorder of a
+  1080p call and a config-4 estimate against their plain versions, the
+  results against the former in-place torch route bit for bit, and their
+  times and byte bounds; every counted path also counts its reorders
+  (``counted(..., reorders=)``).
 
 K2 and K2-SLS must equal their plain versions on all 12 output planes of
 every ray (K2-SLS at least on ``HIT_AGREE`` of them), and their work
@@ -1874,7 +1880,7 @@ def illumination_phase(device, totals, render_1080p, frame_1080p, rays_1080p):
             (out, rays), launches = counted(
                 lambda: estimate_illumination_counted(compiled, env_s, config, probes,
                                                       seed=C4_SEED), expect, totals,
-                seeds=1)
+                seeds=1, reorders=1 + config.bounces - blocks)
             if rows != "0" and exact == "0":
                 k6_launches = capture_k6(sample)
             med, walls, _ = median_calls(lambda: sample().energy.shape[0])
@@ -1960,7 +1966,7 @@ def illumination_phase(device, totals, render_1080p, frame_1080p, rays_1080p):
         (frame_b, rays_b), launches = counted(
             render_1080p, {"seg_segment_kernel": (BOUNCES + 1) * FRAMES,
                            "block_perm_kernel": BOUNCES * FRAMES}, totals,
-            seeds=FRAMES)
+            seeds=FRAMES, reorders=0)
         same = all(torch.equal(getattr(frame_b, k), getattr(frame_1080p, k))
                    for k in ("color", "normal", "albedo")) and int(rays_b) == rays_1080p
         print(f"  1080p with bperm {BPERM_ROWS}: launches {launches}, {int(rays_b)} "
@@ -3212,6 +3218,305 @@ def tea_phase(device):
     return out
 
 
+REORDER_KERNELS = ("reorder_key_kernel", "reorder_gather_kernel")
+# bytes a ray of the exact reorder's kernels, each read once and written
+# once: the key reads seven state planes and writes the key; the gather
+# reads the order and moves 13 float32 planes, the RNG and the original
+# index (a live ray), or reads the order, the original index and the three
+# radiance planes and writes the radiance (a ray the key found dead)
+KEY_BYTES = 7 * 4 + 4
+GATHER_LIVE_BYTES = 8 + 2 * (13 * 4 + 4 + 8)
+GATHER_DEAD_BYTES = 8 + 8 + 2 * 3 * 4
+# every OUTSIDE_STRIDE-th ray of a checked pool is made live with an origin
+# outside the scene box, one axis at a time: below, above, far beyond the
+# int32 range both ways (the card's cast saturates), infinite, NaN
+OUTSIDE_STRIDE = 97
+OUTSIDE_OFFSETS = (-7.0, 3.0, 1e30, -1e30, float("inf"), -float("inf"), float("nan"))
+
+
+def _bits_equal(a, b):
+    """Equal bit for bit (float planes as int32, so NaN equals itself)."""
+    import torch
+
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return a.shape == b.shape and bool(torch.equal(a, b))
+
+
+def _outside(st, m, lo, inv_extent):
+    """Live rays of the first ``m`` whose origin lies outside the scene
+    box on some axis (or is NaN)."""
+    import torch
+
+    from raytracerfacility_tpu_torch.ops.fused import ACT, OX, OZ
+
+    t = (st[OX:OZ + 1, :m] - lo[:, None]) * inv_extent[:, None]
+    out = ((t < 0) | (t >= 1) | torch.isnan(t)).any(0)
+    return int((out & (st[ACT, :m] > 0.0)).sum())
+
+
+def checked_reorders(render):
+    """Run ``render()`` with every call of the exact reorder's key and
+    gather wrappers held to its plain version on the same card tensors
+    (the torch ops the engine ran before the kernels): the key and the live
+    count (``count_nonzero``) equal; the gather's outputs, radiance
+    included, equal bit for bit to ``index_select`` into copies of the same
+    buffers. Returns (the result, {calls, rays, live, outside})."""
+    import torch
+
+    from raytracerfacility_tpu_torch.ops import seg
+
+    real_key, real_gather = seg.reorder_key, seg.reorder_gather
+    seen = {"key calls": 0, "gather calls": 0, "rays": 0, "live": 0, "outside": 0}
+
+    def key_spy(st, m, lo, inv_extent):
+        key, live = real_key(st, m, lo, inv_extent)
+        want, want_live = seg._reorder_key_plain(st, m, lo, inv_extent)
+        if not (torch.equal(key, want) and torch.equal(live, want_live)):
+            raise AssertionError(f"reorder_key_kernel differs from _morton_key on "
+                                 f"{int((key != want).sum())} of {m} rays, live "
+                                 f"{int(live)} against {int(want_live)}")
+        seen["key calls"] += 1
+        seen["rays"] += m
+        seen["live"] += int(live)
+        seen["outside"] += _outside(st, m, lo, inv_extent)
+        return key, live
+
+    def gather_spy(order, st, rng, orig, live, out, radiance=None):
+        want = tuple(t.clone() for t in out)
+        want_rad = None if radiance is None else radiance.clone()
+        seg._reorder_gather_plain(order, st, rng, orig, live, want, want_rad)
+        real_gather(order, st, rng, orig, live, out, radiance)
+        got = (*out, *(() if radiance is None else (radiance,)))
+        if not all(_bits_equal(a, b) for a, b in zip(
+                got, (*want, *(() if radiance is None else (want_rad,))))):
+            raise AssertionError("reorder_gather_kernel differs from index_select")
+        seen["gather calls"] += 1
+
+    seg.reorder_key, seg.reorder_gather = key_spy, gather_spy
+    try:
+        result = render()
+    finally:
+        seg.reorder_key, seg.reorder_gather = real_key, real_gather
+    return result, seen
+
+
+def inplace_route(st, rng, orig, m, lo, inv_extent, out=None, radiance=None):
+    """The exact reorder as the engine ran it before its kernels, in place
+    with torch ops (``_morton_key``, the stable argsort, three
+    ``index_select``s copied back, ``count_nonzero``), then handed to the
+    engine's contract: with ``out``, the sorted rays copied there and each
+    dead ray's radiance to its original column of ``radiance``."""
+    import torch
+
+    from raytracerfacility_tpu_torch.ops import seg
+
+    key = seg._morton_key(st[:, :m], lo, inv_extent)
+    order = torch.argsort(key, stable=True)
+    st[:, :m] = st[:, :m].index_select(1, order)
+    rng[:m] = rng[:m].index_select(0, order)
+    orig[:m] = orig[:m].index_select(0, order)
+    live = int(torch.count_nonzero(key != seg._DEAD_KEY))
+    if out is not None:
+        out[0][:, :m] = st[:, :m]
+        out[1][:m] = rng[:m]
+        out[2][:m] = orig[:m]
+        if radiance is not None:
+            radiance[:, orig[live:m]] = st[seg.RR:seg.RB + 1, live:m]
+    return live
+
+
+def capture_reorders(render, calls):
+    """Run ``render()`` with the reorder recording the inputs of the calls
+    whose index is in ``calls``: {index: (st, rng, orig, m, lo,
+    inv_extent)}, cloned."""
+    from raytracerfacility_tpu_torch.ops import seg
+
+    seen, count = {}, [0]
+    real = seg.reorder
+
+    def spy(st, rng, orig, m, lo, inv_extent, **kw):
+        if count[0] in calls:
+            seen[count[0]] = (st.clone(), rng.clone(), orig.clone(), m, lo, inv_extent)
+        count[0] += 1
+        return real(st, rng, orig, m, lo, inv_extent, **kw)
+
+    seg.reorder = spy
+    try:
+        render()
+    finally:
+        seg.reorder = real
+    return seen
+
+
+def time_reorder(pool, what):
+    """Both kernels at one captured reorder's shape: each one's device time
+    (ten calls queued behind a device sleep, median of five) against its
+    byte bound and its plain version's device time, the stable sort's
+    between them, and the key and gather checked once more with the pool's
+    live origins moved outside the scene box (every OUTSIDE_STRIDE-th ray,
+    one axis at a time)."""
+    import torch
+
+    from raytracerfacility_tpu_torch.ops import seg
+    from raytracerfacility_tpu_torch.ops.fused import ACT, OX
+
+    st, rng, orig, m, lo, inv_extent = pool
+    key, live = seg.reorder_key(st, m, lo, inv_extent)
+    order = torch.argsort(key, stable=True)
+    n_live = int(live)
+    out = (torch.empty_like(st), torch.empty_like(rng), torch.empty_like(orig))
+    radiance = torch.empty((3, st.shape[1]), dtype=torch.float32, device=st.device)
+    scratch = tuple(torch.empty_like(t) for t in out)
+
+    def runs(fn, calls=10):
+        return sorted(_device_ms(fn, calls) for _ in range(5))
+
+    key_ms = runs(lambda: seg.reorder_key(st, m, lo, inv_extent))
+    key_plain = runs(lambda: seg._reorder_key_plain(st, m, lo, inv_extent), 1)
+    sort_ms = runs(lambda: torch.argsort(key, stable=True))
+    gather_ms = runs(lambda: seg.reorder_gather(order, st, rng, orig, live, out,
+                                                radiance))
+    # the engine's former data movement: index_select, then the copy back
+    gather_plain = runs(lambda: seg._reorder_gather_plain(order, st, rng, orig, live,
+                                                          scratch), 1)
+    key_bytes = KEY_BYTES * m
+    gather_bytes = GATHER_LIVE_BYTES * n_live + GATHER_DEAD_BYTES * (m - n_live)
+    r = {"rays": m, "live": n_live, "key_ms": key_ms[2], "key_runs": key_ms,
+         "key_bound_ms": key_bytes / PEAK_BYTES * 1e3, "key_plain_ms": key_plain[2],
+         "sort_ms": sort_ms[2], "gather_ms": gather_ms[2], "gather_runs": gather_ms,
+         "gather_bound_ms": gather_bytes / PEAK_BYTES * 1e3,
+         "gather_plain_ms": gather_plain[2]}
+    print(f"  {what}: {m} rays, {n_live} live; key {r['key_ms']:.4f} ms (runs "
+          f"{', '.join(f'{t:.4f}' for t in key_ms)}), bound {r['key_bound_ms']:.4f} ms "
+          f"({key_bytes} bytes), plain {r['key_plain_ms']:.4f} ms; stable sort "
+          f"{r['sort_ms']:.4f} ms; gather {r['gather_ms']:.4f} ms (runs "
+          f"{', '.join(f'{t:.4f}' for t in gather_ms)}), bound "
+          f"{r['gather_bound_ms']:.4f} ms ({gather_bytes} bytes), index_select and "
+          f"copy back {r['gather_plain_ms']:.4f} ms")
+
+    moved = st.clone()
+    rows = torch.arange(0, m, OUTSIDE_STRIDE, device=st.device)
+    for j in range(3):
+        pick = rows[j::3]
+        offs = torch.tensor(OUTSIDE_OFFSETS, device=st.device)[
+            torch.arange(pick.numel(), device=st.device) % len(OUTSIDE_OFFSETS)]
+        span = 1.0 / inv_extent[j]
+        base = torch.where(offs.abs() < 10, lo[j] + offs * span, offs)
+        moved[OX + j, pick] = base
+    moved[ACT, rows] = 1.0
+    (key_o, live_o), seen = checked_reorders(lambda: seg.reorder_key(moved, m, lo,
+                                                                     inv_extent))
+    order_o = torch.argsort(key_o, stable=True)
+    checked_reorders(lambda: seg.reorder_gather(order_o, moved, rng, orig, live_o,
+                                                tuple(torch.empty_like(t) for t in out),
+                                                torch.empty_like(radiance)))
+    print(f"    with {rows.numel()} live origins moved outside the box: key, live "
+          f"count and gather equal ({seen['outside']} live rays outside)")
+    r["outside"] = seen["outside"]
+    return r
+
+
+def reorder_phase(device, totals, render_1080p=None):
+    """Phase 28: the exact reorder's kernels (``reorder_key_kernel``,
+    ``reorder_gather_kernel``). A 1080p call and a config-4 estimate,
+    counted (32 and 3 reorders: one key and one gather launch each), with
+    every key and gather call held to its plain version; both again with
+    the reorder replaced by the engine's former in-place torch route, which
+    must give the same frame, energies, directions and rays bit for bit;
+    then the kernels' times and bounds at 1080p segments 1 and 5 and at
+    config 4's presort, with origins moved outside the box there. Returns
+    {shape: numbers}."""
+    import torch
+
+    from raytracerfacility_tpu_torch.models.illumination import (
+        TriangleIlluminationEstimator,
+        estimate_illumination_counted,
+    )
+    from raytracerfacility_tpu_torch.models.pathtracer import (
+        RenderConfig,
+        init_frame,
+        render_frames_counted,
+    )
+    from raytracerfacility_tpu_torch.ops import seg
+    from raytracerfacility_tpu_torch.scenes import bench_scene, canopy_illumination
+
+    if render_1080p is None:
+        scene, cam, env = bench_scene(WIDTH, HEIGHT)
+        compiled = scene.build(device)
+        cam_s, env_s = cam.state(device), env.state(device)
+        config = RenderConfig(width=WIDTH, height=HEIGHT, bounces=BOUNCES, samples=1)
+
+        def render_1080p():
+            return render_frames_counted(compiled, cam_s, env_s, config,
+                                         init_frame(WIDTH, HEIGHT, device), FRAMES)
+
+    c4_scene, items, c4_env, c4_config = canopy_illumination()
+    c4 = c4_scene.build(device)
+    probes = TriangleIlluminationEstimator().prepare_light_probe_group(items, device)
+    c4_env_s = c4_env.state(device)
+
+    def estimate():
+        return estimate_illumination_counted(c4, c4_env_s, c4_config, probes,
+                                             seed=C4_SEED)
+
+    runs = {"1080p": (render_1080p, {"seg_segment_kernel": (BOUNCES + 1) * FRAMES},
+                      FRAMES, BOUNCES * FRAMES),
+            "config 4": (estimate, {"seg_segment_kernel": c4_config.bounces + 1}, 1,
+                         c4_config.bounces + 1)}
+    for what, (render, expect, seeds, reorders) in runs.items():
+        ((result, rays), seen), launches = counted(
+            lambda: checked_reorders(render), expect, totals, seeds=seeds,
+            reorders=reorders)
+        real = seg.reorder
+        seg.reorder = inplace_route
+        try:
+            old, old_rays = render()
+        finally:
+            seg.reorder = real
+        if what == "1080p":
+            fields = [(k, getattr(result, k), getattr(old, k))
+                      for k in ("color", "normal", "albedo")]
+        else:
+            fields = [(k, getattr(result, k), getattr(old, k))
+                      for k in ("energy", "direction")]
+        same = all(_bits_equal(a, b) for _, a, b in fields) and int(rays) == int(old_rays)
+        print(f"phase 28: {what}, launches {launches} and {seen['key calls']} of "
+              f"each reorder kernel: {seen['key calls']} keys and "
+              f"{seen['gather calls']} gathers equal to their plain versions "
+              f"({seen['rays']} rays keyed, {seen['live']} live, {seen['outside']} "
+              f"live outside the box); against the in-place torch route "
+              f"{', '.join(k for k, _, _ in fields)} and {int(rays)} rays equal: {same}")
+        if not same:
+            raise AssertionError(f"{what}: the kernels' reorder changes the result")
+
+    pools = capture_reorders(render_1080p, {0, 4})
+    shapes = {"1080p segment 1": pools[0], "1080p segment 5": pools[4],
+              "config 4 presort": capture_reorders(estimate, {0})[0]}
+    print("  the kernels' device times and byte bounds (H100 at 3.35 TB/s):")
+    return {what: time_reorder(pool, what) for what, pool in shapes.items()}
+
+
+def reorder_rows(reorder, ptxas, totals):
+    """The kernels line's rows of the exact reorder's two kernels, at 1080p
+    segment 1."""
+    shape = "1080p segment 1"
+    r = reorder[shape]
+    rows = []
+    for name, k in (("reorder_key_kernel", "key"), ("reorder_gather_kernel", "gather")):
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "raytracerfacility_tpu_torch/csrc/perm.cu",
+            "replaces": ("none: XLA glue raytracerfacility_tpu/ops/pallas_seg.py:791 "
+                         "_morton_key and :926 _reorder_at's multi-operand lax.sort"),
+            "launches": totals.get(name, 0), "max_abs_err": 0, "ms": r[f"{k}_ms"],
+            "plain_ms": r[f"{k}_plain_ms"], "bound_ms": r[f"{k}_bound_ms"],
+            "bound_by": "bytes", "library_ms": None,
+            "shape": f"{shape}, {r['rays']} rays", "shapes": reorder,
+            "ptxas": ptxas.get(name)})
+    return rows
+
+
 def ptxas_summary(log):
     """{kernel: "R registers, S/L bytes spill stores/loads, B bytes static
     smem"} from nvcc's ``-Xptxas -v`` log (the sweep kernels also take 4
@@ -3248,14 +3553,16 @@ def ptxas_summary(log):
     return names
 
 
-def counted(render, expect, totals, seeds=None):
+def counted(render, expect, totals, seeds=None, reorders=None):
     """Drive one path with every launch counter set to 0 just before and
     read just after; raise unless exactly the kernels in ``expect`` (name
     -> required count, or None for "at least one") were launched. The RNG
     seeding kernel is checked apart: ``seeds`` launches of it (None: at
     least one; 0 for a path handed its rays), left out of the counts
-    returned. Adds the counts to ``totals`` and returns the path's result
-    and its counts."""
+    returned. So are the exact reorder's: one key and one gather launch a
+    reorder, ``reorders`` of each (None: any number; the wavefront engine's
+    depends on when its pool dies out), also left out. Adds the counts to
+    ``totals`` and returns the path's result and its counts."""
     from raytracerfacility_tpu_torch import kernels
 
     kernels.reset_launches()
@@ -3266,6 +3573,12 @@ def counted(render, expect, totals, seeds=None):
         raise AssertionError(f"{n_seeds} {SEED_KERNEL} launches, expected "
                              f"{'at least one' if seeds is None else seeds}")
     totals[SEED_KERNEL] = totals.get(SEED_KERNEL, 0) + n_seeds
+    keys, gathers = (launches.pop(k) for k in REORDER_KERNELS)
+    if keys != gathers or (reorders is not None and keys != reorders):
+        raise AssertionError(f"{keys} key and {gathers} gather launches, expected "
+                             f"{'as many of each' if reorders is None else reorders}")
+    for name in REORDER_KERNELS:
+        totals[name] = totals.get(name, 0) + keys
     for name, n in launches.items():
         want = expect.get(name, 0)
         if (want is None and n < 1) or (want is not None and n != want):
@@ -3292,7 +3605,7 @@ def main(argv=None) -> int:
     import torch
 
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--only", choices=["tea"],
+    parser.add_argument("--only", choices=["tea", "reorder"],
                         help="run phases 0 and 1 and this kernel's phase alone")
     args = parser.parse_args(argv)
 
@@ -3329,9 +3642,13 @@ def main(argv=None) -> int:
         print(f"  {name}: {info}")
     for name in kernels.SOURCES:
         kernels.library(name)
-    if args.only == "tea":
-        print("phase 27: tea_init_kernel vs plain at the main path's pools")
-        print(json.dumps({"kernels": [tea_row(tea_phase(device), ptxas)]}))
+    if args.only:
+        if args.only == "tea":
+            print("phase 27: tea_init_kernel vs plain at the main path's pools")
+            rows = [tea_row(tea_phase(device), ptxas)]
+        else:
+            rows = reorder_rows(reorder_phase(device, totals), ptxas, totals)
+        print(json.dumps({"kernels": rows}))
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
@@ -3358,12 +3675,13 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     (frame, rays), after4 = counted(
         render_1080p, {"seg_segment_kernel": (BOUNCES + 1) * FRAMES}, totals,
-        seeds=FRAMES)
+        seeds=FRAMES, reorders=BOUNCES * FRAMES)
     rays = int(rays)
     cold_s = time.perf_counter() - t0
     color = frame.color[..., :3]
     print(f"phase 4: {WIDTH}x{HEIGHT} {BOUNCES} bounces {FRAMES} frames: "
-          f"{rays} live rays, cold {cold_s:.3f} s, launches {after4}")
+          f"{rays} live rays, cold {cold_s:.3f} s, launches {after4}, "
+          f"{BOUNCES * FRAMES} of each reorder kernel")
     if not (bool(torch.isfinite(frame.color).all()) and float(color.mean()) > 0.0
             and rays > 0 and frame.frame_id == FRAMES):
         raise AssertionError("the 1080p frame is not finite, non-zero and counted")
@@ -3679,6 +3997,8 @@ def main(argv=None) -> int:
     # phase 27: the RNG seeding kernel at the main path's pools
     print("phase 27: tea_init_kernel vs plain at the main path's pools")
     tea = tea_phase(device)
+    # phase 28: the exact reorder's key and gather kernels
+    reorder = reorder_phase(device, totals, render_1080p)
 
     def row(name, source, replaces, err, ms, plain_ms, bnd, by):
         return {"name": name, "route": "cuda",
@@ -3791,6 +4111,7 @@ def main(argv=None) -> int:
                    "index_select of each plane set on its block view",
              at_1080p=k6["1080p"]),
         dict(tea_row(tea, ptxas), launches=totals.get(SEED_KERNEL, 0)),
+        *reorder_rows(reorder, ptxas, totals),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

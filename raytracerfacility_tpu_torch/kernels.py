@@ -50,7 +50,8 @@ LAUNCHES = {"seg_segment_kernel": 0, "seg_segment_kernel<miss>": 0,
             "bvh_trace_kernel<false>": 0, "bvh_trace_kernel<true>": 0,
             "block_perm_kernel": 0, "miss_compact_kernel": 0,
             "miss_radiance_kernel": 0, "btf_decode_kernel": 0,
-            "tea_init_kernel": 0}
+            "tea_init_kernel": 0, "reorder_key_kernel": 0,
+            "reorder_gather_kernel": 0}
 
 # device -> (2,) int64 tensor on it: the missed rays whose light the hook
 # did not and did write out (ops/environment.py::missed_rays)
@@ -130,7 +131,8 @@ _ARGTYPES = {
     "brute": {"rtf_brute_trace": (14, 5)},
     "inst": {"rtf_inst_trace": (21, 5)},
     "bvh": {"rtf_bvh_trace": (13, 4)},
-    "perm": {"rtf_block_perm": (7, 3)},
+    "perm": {"rtf_block_perm": (7, 3), "rtf_reorder_key": (5, 2),
+             "rtf_reorder_gather": (9, 5)},
     "env": {"rtf_miss_compact": (4, 1), "rtf_miss_radiance": (7, 9)},
     "btf": {"rtf_btf_decode": (13, 2)},
     "rng": {"rtf_tea_init": (3, 2)},

@@ -156,7 +156,8 @@ def _trace_plain(table, st, tmin):
     best hit; the normal is the winner's corner blend n0 + u*d1 + v*d2."""
     r = st.shape[1]
     outs = []
-    for r0 in range(0, r, _PLAIN_RAYS):
+    # one empty block when no ray is left: the planes come out empty
+    for r0 in range(0, max(r, 1), _PLAIN_RAYS):
         s = st[:, r0:r0 + _PLAIN_RAYS]
         o = s[OX:OZ + 1].T[:, None, :]
         d = s[DX:DZ + 1].T[:, None, :]

@@ -14,7 +14,15 @@ segment to the live-ray total. Two reorders exist, as in the reference:
 
 - the exact reorder (:func:`reorder`): a stable sort by ``_morton_key``
   (direction octant, then a 4-bit-per-axis Morton cell of the origin; dead
-  rays last), so the live rays form an exact prefix;
+  rays last), so the live rays form an exact prefix. On the card it is
+  ``reorder_key_kernel`` (the key and the live count), the library's
+  stable argsort, and ``reorder_gather_kernel``, which moves the live
+  prefix into a second set of planes (the engine swaps the sets) and
+  writes the radiance of each ray the sort finds dead to the pool's
+  radiance output, so that no ray is copied back and the unsort scatters
+  only the last launch's rays (``csrc/perm.cu``; the reference's key and
+  multi-operand XLA sort, pallas_seg.py:791-831 and :926-1008, are XLA,
+  not TPU kernels);
 - the block reorder (``bperm_rows`` > 0, ``RTF_TPU_SEG_BPERM``): the pool
   is cut into blocks of ``bperm_rows * 128`` consecutive rays (the
   reference's ``(bperm_rows, 128)`` blocks of its ``(rows, 128)`` planes);
@@ -130,20 +138,165 @@ def _morton_key(st, lo, inv_extent):
     return torch.where(st[ACT] > 0.0, key, _DEAD_KEY)
 
 
-@tracing.spanned("seg.reorder")
-def reorder(st, rng, orig, m: int, lo, inv_extent) -> int:
-    """Stable-sort the first ``m`` rays by :func:`_morton_key`, in place,
-    carrying the RNG and original-index planes. Rays past ``m`` must be
-    dead: a stable sort of the whole pool would leave them where they
-    are. Returns the live count, which is the length of the live prefix
-    after the sort (one device-to-host read, the span
-    ``seg.sync.live_count``)."""
+def _reorder_key_plain(st, m: int, lo, inv_extent):
+    """Plain version of :func:`reorder_key`."""
     key = _morton_key(st[:, :m], lo, inv_extent)
+    return key, torch.count_nonzero(key != _DEAD_KEY).to(torch.int32).reshape(1)
+
+
+def check_key_inputs(st, m: int, lo, inv_extent, device) -> None:
+    """Raise unless the key kernel can take these: a contiguous (P, R)
+    float32 state of at least 7 planes, 0 <= m <= R, contiguous (3,)
+    float32 ``lo`` and ``inv_extent``, all on ``device``, 32-bit offsets."""
+    if (st.dtype != torch.float32 or st.dim() != 2 or st.shape[0] <= ACT
+            or not 0 <= m <= st.shape[1] or st.numel() >= 2**31
+            or any(t.dtype != torch.float32 or t.shape != (3,)
+                   for t in (lo, inv_extent))
+            or any(not t.is_contiguous() or t.device != device
+                   for t in (st, lo, inv_extent))):
+        raise ValueError("reorder_key takes a contiguous (P, R) float32 state "
+                         "of at least 7 planes, m <= R, and contiguous (3,) "
+                         "float32 lo and inv_extent on one device")
+
+
+def reorder_key(st, m: int, lo, inv_extent):
+    """The reorder key of the first ``m`` rays of ``st`` and their live
+    count: ((m,) int32 :func:`_morton_key`, (1,) int32 rays with ACT > 0),
+    both on the state's device, so the host reads nothing.
+
+    On the card one launch of ``reorder_key_kernel`` (``csrc/perm.cu``),
+    which reads the planes in place at the pool's stride and computes the
+    key as torch's ops do there, bit for bit; each block adds its live rays
+    to the count with one atomic."""
+    if st.device.type == "cpu":
+        return _reorder_key_plain(st, m, lo, inv_extent)
+    if st.device.type != "cuda":
+        raise ValueError(f"no kernel for device {st.device}")
+    device = st.device
+    check_key_inputs(st, m, lo, inv_extent, device)
+    key = torch.empty((m,), dtype=torch.int32, device=device)
+    live = torch.empty((1,), dtype=torch.int32, device=device)
+    err = kernels.library("perm").rtf_reorder_key(
+        st.data_ptr(), lo.data_ptr(), inv_extent.data_ptr(), key.data_ptr(),
+        live.data_ptr(), st.shape[1], m,
+        ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream))
+    kernels.LAUNCHES["reorder_key_kernel"] += 1
+    kernels.check(err, "reorder_key_kernel")
+    return key, live
+
+
+def _reorder_gather_plain(order, st, rng, orig, live, out, radiance=None):
+    """Plain version of :func:`reorder_gather`."""
+    if radiance is not None:
+        n = int(live)
+        dead = order[n:]
+        radiance[:, orig[dead]] = st[RR:RB + 1, dead]
+        order = order[:n]
+    k = order.shape[0]
+    out[0][:, :k] = st.index_select(1, order)
+    out[1][:k] = rng.index_select(0, order)
+    out[2][:k] = orig.index_select(0, order)
+
+
+def check_gather_inputs(order, st, rng, orig, live, out, radiance, device) -> None:
+    """Raise unless the gather kernel can take these: contiguous (P, R)
+    float32, (R,) int32 and (R,) int64 planes, an (m,) int64 ``order`` with
+    m <= R and a (1,) int32 ``live``; three outputs of the same kinds with
+    at least m rays; ``radiance`` None or a contiguous (3, R') float32 for
+    a 13-plane state; all on ``device``, aligned to their element, 32-bit
+    offsets, and no output (``radiance`` included) one of the inputs (the
+    kernel reads and writes at once)."""
+    ins = (st, rng, orig, order, live)
+    outs = (*out, *(() if radiance is None else (radiance,)))
+    stride = st.shape[1] if st.dim() == 2 else -1
+    m = order.shape[0] if order.dim() == 1 else -1
+    o_st, o_rng, o_orig = out if len(out) == 3 else (st, None, None)
+    o_stride = o_st.shape[1] if o_st.dim() == 2 else -1
+    if (len(out) != 3 or st.dtype != torch.float32 or st.dim() != 2
+            or rng.dtype != torch.int32 or orig.dtype != torch.int64
+            or order.dtype != torch.int64 or live.dtype != torch.int32
+            or rng.shape != (stride,) or orig.shape != (stride,)
+            or not 0 <= m <= stride or live.shape != (1,)
+            or o_st.dtype != torch.float32 or o_st.shape != (st.shape[0], o_stride)
+            or o_rng.dtype != torch.int32 or o_rng.shape != (o_stride,)
+            or o_orig.dtype != torch.int64 or o_orig.shape != (o_stride,)
+            or o_stride < m
+            or (radiance is not None and (
+                radiance.dtype != torch.float32 or radiance.dim() != 2
+                or radiance.shape[0] != 3 or st.shape[0] != NPLANES
+                or radiance.numel() >= 2**31))
+            or max(st.numel(), o_st.numel()) >= 2**31
+            or any(not t.is_contiguous() or t.device != device
+                   or t.data_ptr() % t.element_size() for t in (*ins, *outs))
+            or ({t.data_ptr() for t in outs if t.numel()}
+                & {t.data_ptr() for t in ins if t.numel()})):
+        raise ValueError(
+            "reorder_gather takes contiguous (P, R) float32, (R,) int32 and "
+            "(R,) int64 planes, an (m,) int64 order, a (1,) int32 live count, "
+            "outputs of the same kinds with at least m rays and a (3, R') "
+            "float32 radiance or None, on one device, none an input")
+
+
+def reorder_gather(order, st, rng, orig, live, out, radiance=None) -> None:
+    """Move ray ``order[i]`` of every plane to position ``i`` of ``out``
+    (three tensors like ``st``, ``rng``, ``orig``, none of them an input),
+    for i < m = len(order). With ``radiance`` ((3, R') float32) only the
+    positions below ``live`` ((1,) int32 on the device, as
+    :func:`reorder_key` leaves it) are written; each ray at or past it has
+    its radiance planes written to its original column of ``radiance``
+    instead (its ``orig`` value), and is not touched again.
+
+    On the card one launch of ``reorder_gather_kernel`` (``csrc/perm.cu``):
+    a thread a ray and a group of three planes, loads before stores, the
+    groups one after another so that a group's source planes stay in L2;
+    it reads the live count in device memory."""
+    if st.device.type == "cpu":
+        return _reorder_gather_plain(order, st, rng, orig, live, out, radiance)
+    if st.device.type != "cuda":
+        raise ValueError(f"no kernel for device {st.device}")
+    device = st.device
+    check_gather_inputs(order, st, rng, orig, live, out, radiance, device)
+    err = kernels.library("perm").rtf_reorder_gather(
+        st.data_ptr(), out[0].data_ptr(), rng.data_ptr(), out[1].data_ptr(),
+        orig.data_ptr(), out[2].data_ptr(), order.data_ptr(), live.data_ptr(),
+        None if radiance is None else radiance.data_ptr(), st.shape[0],
+        st.shape[1], out[0].shape[1], 0 if radiance is None else radiance.shape[1],
+        order.shape[0],
+        ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream))
+    kernels.LAUNCHES["reorder_gather_kernel"] += 1
+    kernels.check(err, "reorder_gather_kernel")
+
+
+@tracing.spanned("seg.reorder")
+def reorder(st, rng, orig, m: int, lo, inv_extent, out=None, radiance=None) -> int:
+    """Stable-sort the first ``m`` rays by :func:`_morton_key`, carrying the
+    RNG and original-index planes; the live rays form the sorted prefix.
+    Rays past ``m`` must be dead: a stable sort of the whole pool would
+    leave them where they are. Returns the live count, read by the host
+    after the gather is queued (one device-to-host read, the span
+    ``seg.sync.live_count``).
+
+    ``out`` None: in place (a gather into scratch, then one copy back).
+    ``out`` (three planes like the inputs, none of them an input): the
+    sorted rays go there instead, the caller swaps the two sets, and with
+    ``radiance`` ((3, R') float32) only the live prefix is written, each
+    ray the sort finds dead writing its radiance to its original column
+    of ``radiance`` (:func:`reorder_gather`).
+
+    On the card: :func:`reorder_key`, ``torch.argsort(stable=True)`` (the
+    counterpart of the reference's XLA sort, pallas_seg.py:926-1008), and
+    :func:`reorder_gather`."""
+    key, live = reorder_key(st, m, lo, inv_extent)
     order = torch.argsort(key, stable=True)
-    st[:, :m] = st[:, :m].index_select(1, order)
-    rng[:m] = rng[:m].index_select(0, order)
-    orig[:m] = orig[:m].index_select(0, order)
-    live = torch.count_nonzero(key != _DEAD_KEY)
+    if out is None:
+        scratch = (st.new_empty((st.shape[0], m)), rng.new_empty((m,)),
+                   orig.new_empty((m,)))
+        reorder_gather(order, st, rng, orig, live, scratch)
+        st[:, :m] = scratch[0]
+        rng[:m] = scratch[1]
+        orig[:m] = scratch[2]
+    else:
+        reorder_gather(order, st, rng, orig, live, out, radiance)
     with tracing.span("seg.sync.live_count"):
         return int(live)
 
@@ -389,6 +542,19 @@ def render_pool_sorted(tables, origin, direction, rng, valid, env_rgb,
                               out=aov[3:6] if is_first else None)
         return aov
 
+    def exact(m):
+        """The exact reorder of [0, m): into the spare set, whose turn it
+        then is, the rays it leaves dead writing their radiance out; in
+        place beside K6, which moves whole sets (the unsort then reads the
+        whole set)."""
+        nonlocal st, rng_i, orig, spare
+        if bperm_rows > 0:
+            return reorder(st, rng_i, orig, m, lo, inv_extent)
+        live = reorder(st, rng_i, orig, m, lo, inv_extent, out=spare,
+                       radiance=radiance)
+        spare, (st, rng_i, orig) = (st, rng_i, orig), spare
+        return live
+
     with tracing.span("seg.init"):
         env = torch.zeros((16,), dtype=torch.float32, device=device)
         env[: env_rgb.shape[0]] = env_rgb
@@ -400,15 +566,18 @@ def render_pool_sorted(tables, origin, direction, rng, valid, env_rgb,
         rng_i = torch.zeros((n_pad,), dtype=torch.int32, device=device)
         rng_i[:n] = to_int32(rng)
         orig = torch.arange(n_pad, dtype=torch.int64, device=device)
-        spare = ((torch.empty_like(st), torch.empty_like(rng_i),
-                  torch.empty_like(orig)) if bperm_rows > 0 else None)
+        spare = (torch.empty_like(st), torch.empty_like(rng_i),
+                 torch.empty_like(orig))
+        # each ray's radiance, by original index: written once, by the
+        # reorder that leaves the ray dead or at the unsort
+        radiance = torch.empty((3, n_pad), dtype=torch.float32, device=device)
         lo, inv_extent = _scene_bounds(tables[2])
         valid_count = torch.count_nonzero(valid)
         with tracing.span("seg.sync.valid_count"):
             total = int(valid_count)
         # every ray past `extent` is dead
-        extent = reorder(st, rng_i, orig, n_pad, lo, inv_extent) if presort else n
-        aov_orig = orig.clone() if presort else None
+        extent = exact(n_pad) if presort else n
+        aov_orig = orig[:extent].clone() if presort else None
     aov = run(st, rng_i, extent, True, bounces >= 1)
     for s in range(1, bounces + 1):
         use_bperm = bperm_rows > 0 and s >= bperm_from and not (
@@ -425,23 +594,25 @@ def render_pool_sorted(tables, origin, direction, rng, valid, env_rgb,
                     live_blocks, live = counts.tolist()
                 extent = live_blocks * bsize
         else:
-            live = extent = reorder(st, rng_i, orig, extent, lo, inv_extent)
+            live = extent = exact(extent)
         if live == 0:
             break
         run(st, rng_i, extent, False, s < bounces)
         total += live
 
     with tracing.span("seg.unsort"):
-        radiance = torch.empty((3, n_pad), dtype=torch.float32, device=device)
-        radiance[:, orig] = st[RR:RB + 1]
+        # the rays still in the set's launch extent; the others wrote their
+        # radiance as their reorder left them dead. With the block reorder
+        # on, every reorder keeps the whole set: all of it is read here
+        done = n_pad if bperm_rows > 0 else extent
+        radiance[:, orig[:done]] = st[RR:RB + 1, :done]
         if presort:
-            # the rays past segment 0's launch are dead (no-hit AOVs); all
-            # go back to original order through segment 0's index map
+            # the rays past segment 0's launch are dead (no-hit AOVs); the
+            # others go back to original order through segment 0's index map
             full = torch.zeros((NAOV, n_pad), dtype=torch.float32, device=device)
             full[6:9] = _NO_HIT
-            full[:, :aov.shape[1]] = aov
-            aov = torch.empty_like(full)
-            aov[:, aov_orig] = full
+            full[:, aov_orig] = aov
+            aov = full
         # a host-to-device copy from pageable memory: it waits for the queue
         with tracing.span("seg.sync.ray_total"):
             rays = torch.tensor(total, dtype=torch.int64, device=device)

@@ -19,8 +19,10 @@ import jax.numpy as jnp
 from raytracerfacility_tpu.ops import pallas_seg
 from raytracerfacility_tpu.ops.camera import generate_camera_rays
 from raytracerfacility_tpu.ops.rng import lcg_init
+from raytracerfacility_tpu_torch.models.pathtracer import RenderConfig, camera_pool
 from raytracerfacility_tpu_torch.ops import seg
-from raytracerfacility_tpu_torch.ops.fused import ACT, NPLANES
+from raytracerfacility_tpu_torch.ops.fused import ACT, NPLANES, render_pool_fused
+from raytracerfacility_tpu_torch.scenes import bench_scene
 from tests.torch_parity import (
     assert_aov_close,
     assert_mostly_equal,
@@ -141,7 +143,11 @@ def test_morton_key_matches_reference(setup):
     np.testing.assert_array_equal(mine, ref)
 
 
-def test_reorder_compacts_live_prefix():
+@pytest.mark.parametrize("form", ["in_place", "swapped"])
+def test_reorder_compacts_live_prefix(form):
+    """Both forms of the exact reorder: in place, and into a second set of
+    planes, where only the live prefix is written and each ray the sort
+    finds dead writes its radiance to its original column instead."""
     g = np.random.default_rng(5)
     n = 1000
     st = torch.as_tensor(g.normal(size=(NPLANES, n)).astype(np.float32))
@@ -152,14 +158,148 @@ def test_reorder_compacts_live_prefix():
     before = st.clone()
     lo = torch.full((3,), -4.0)
     inv = torch.full((3,), 1.0 / 8.0)
-    live = seg.reorder(st, rng, orig, n, lo, inv)
+    if form == "in_place":
+        live = seg.reorder(st, rng, orig, n, lo, inv)
+        assert not (st[ACT, live:] > 0).any()
+        # a permutation carried by every plane, the RNG and the original index
+        assert torch.equal(st, before[:, orig])
+        assert torch.equal(rng.to(torch.int64), orig)
+    else:
+        out = (torch.full_like(st, float("nan")), torch.full_like(rng, -1),
+               torch.full_like(orig, -1))
+        radiance = torch.full((3, n), float("nan"))
+        live = seg.reorder(st, rng, orig, n, lo, inv, out=out, radiance=radiance)
+        assert torch.equal(st, before) and torch.equal(orig, torch.arange(n))
+        st, rng, orig = out
+        # past the live prefix nothing is written
+        assert st[:, live:].isnan().all() and (orig[live:] == -1).all()
+        assert (rng[live:] == -1).all()
+        assert torch.equal(st[:, :live], before[:, orig[:live]])
+        dead = before[ACT] <= 0.0
+        assert torch.equal(radiance[:, dead], before[seg.RR:seg.RB + 1, dead])
+        assert radiance[:, ~dead].isnan().all()
     assert live == live_before
-    assert (st[ACT, :live] > 0).all() and not (st[ACT, live:] > 0).any()
-    # a permutation carried by every plane, the RNG and the original index
-    assert torch.equal(st, before[:, orig])
-    assert torch.equal(rng.to(torch.int64), orig)
+    assert (st[ACT, :live] > 0).all()
+    assert torch.equal(rng[:live].to(torch.int64), orig[:live])
     key = seg._morton_key(st[:, :live], lo, inv)
     assert (key[1:] >= key[:-1]).all()
+
+
+@pytest.fixture(scope="module")
+def port_pool():
+    """The port's 48x48 bench camera pool (2,304 rays), a few invalid."""
+    scene, cam, env = bench_scene(48, 48)
+    compiled = scene.build("cpu")
+    config = RenderConfig(width=48, height=48, bounces=4)
+    seed = torch.tensor([[[3]]], dtype=torch.int64)
+    o, d, rng, valid, env_vec = camera_pool(compiled, cam.state("cpu"),
+                                            env.state("cpu"), config, seed)
+    valid = valid.clone()
+    valid[::37] = 0.0
+    return compiled, (o, d, rng, valid, env_vec)
+
+
+@pytest.mark.parametrize("presort", [False, True])
+@pytest.mark.parametrize("pool", ["dying", "escaping"])
+def test_swapped_sets_equal_whole_path_engine(port_pool, monkeypatch, presort, pool):
+    """``render_pool_sorted``, whose exact reorders move the pool between
+    two sets of planes, against ``render_pool_fused`` bit for bit: a pool
+    that loses rays at every segment, and one whose rays all leave the box
+    through its open front, so that the first reorder after segment 0
+    finds none live (the whole-path engine's plain version then traces an
+    empty pool)."""
+    compiled, (o, d, rng, valid, env_vec) = port_pool
+    # dying: a quarter of the rays turned out of the box, so that segment 0
+    # loses rays too; escaping: every ray turned out
+    d = d.clone()
+    d[:d.shape[0] // 4 if pool == "dying" else None] *= -1.0
+    lives = []
+    real = seg.reorder
+
+    def spy(*a, **k):
+        assert k["out"] is not None and k["radiance"] is not None
+        lives.append(real(*a, **k))
+        return lives[-1]
+
+    monkeypatch.setattr(seg, "reorder", spy)
+    kw = dict(bounces=4, chunk=compiled.fused_chunk)
+    out = seg.render_pool_sorted(compiled.fused, o, d, rng, valid, env_vec,
+                                 presort=presort, **kw)
+    want = render_pool_fused(compiled.fused, o, d, rng, valid, env_vec, **kw)
+    for a, b, what in zip(out, want, ("radiance", "normal", "albedo",
+                                      "position", "rays")):
+        assert a.shape == b.shape and torch.equal(a, b), what
+    valid_rays = int(valid.sum())
+    if presort:
+        assert lives[0] == valid_rays
+        lives = lives[1:]
+    if pool == "dying":
+        assert len(lives) == 4 and lives[-1] > 0
+        assert all(b < a for a, b in zip([valid_rays] + lives, lives))
+        assert float(want[0].std()) > 0.02
+    else:
+        assert lives == [0] and int(out[4]) == valid_rays
+
+
+def _gather_args(n=64, m=48):
+    st = torch.zeros((NPLANES, n))
+    rng = torch.zeros((n,), dtype=torch.int32)
+    orig = torch.arange(n)
+    order = torch.arange(m)
+    live = torch.tensor([m], dtype=torch.int32)
+    out = (torch.empty_like(st), torch.empty_like(rng), torch.empty_like(orig))
+    return dict(order=order, st=st, rng=rng, orig=orig, live=live, out=out,
+                radiance=torch.empty((3, n)))
+
+
+_CPU = torch.device("cpu")
+
+
+@pytest.mark.parametrize("fault", [
+    "key_state_dtype", "key_bounds_shape", "key_m_past_pool", "key_device",
+    "gather_order_dtype", "gather_rng_shape", "gather_out_short",
+    "gather_out_aliases_input", "gather_radiance_shape", "gather_device"])
+def test_reorder_kernel_input_checks_raise(fault):
+    st = torch.zeros((NPLANES, 64))
+    lo = inv = torch.zeros(3)
+    if fault.startswith("key"):
+        args = dict(st=st, m=48, lo=lo, inv_extent=inv, device=_CPU)
+        seg.check_key_inputs(**args)
+        args.update({
+            "key_state_dtype": dict(st=st.double()),
+            "key_bounds_shape": dict(lo=torch.zeros(4)),
+            "key_m_past_pool": dict(m=65),
+            "key_device": dict(device=torch.device("cuda", 0)),
+        }[fault])
+        with pytest.raises(ValueError):
+            seg.check_key_inputs(**args)
+        return
+    args = _gather_args()
+    seg.check_gather_inputs(**args, device=_CPU)
+    if fault == "gather_order_dtype":
+        args["order"] = args["order"].to(torch.int32)
+    elif fault == "gather_rng_shape":
+        args["rng"] = torch.zeros((63,), dtype=torch.int32)
+    elif fault == "gather_out_short":
+        args["out"] = tuple(t[..., :40].contiguous() for t in args["out"])
+    elif fault == "gather_out_aliases_input":
+        args["out"] = (args["st"], *args["out"][1:])
+    elif fault == "gather_radiance_shape":
+        args["radiance"] = torch.empty((4, 64))
+    with pytest.raises(ValueError):
+        seg.check_gather_inputs(**args, device=torch.device("cuda", 0)
+                                if fault == "gather_device" else _CPU)
+
+
+def test_reorder_kernels_need_a_cpu_or_cuda_tensor():
+    args = _gather_args()
+    meta = {k: (v.to("meta") if isinstance(v, torch.Tensor) else
+                tuple(t.to("meta") for t in v)) for k, v in args.items()}
+    with pytest.raises(ValueError, match="no kernel"):
+        seg.reorder_key(meta["st"], 48, torch.zeros(3, device="meta"),
+                        torch.zeros(3, device="meta"))
+    with pytest.raises(ValueError, match="no kernel"):
+        seg.reorder_gather(**meta)
 
 
 def test_sorted_dispatch_rule(setup):
