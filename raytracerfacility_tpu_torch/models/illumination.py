@@ -15,16 +15,18 @@ Port of ``raytracerfacility_tpu/models/illumination.py``: ``LightProbes``,
   TriangleIlluminationEstimator.cpp:8-48, 84-92).
 
 The (probe, face, sample) triple is one flat ray pool with a TEA-hashed RNG
-stream per ray, as in the reference. The pool takes the engine the
-reference picks: with packed path tables the segmented engine with one
-exact reorder before segment 0 (``ops/seg.py``, K1, and K6 under
-``RTF_TPU_SEG_BPERM``) when the scene has 8 chunks or more, or whatever
-its size under a cubemap or the Nishita sky (then with K1's miss-plane
-form and the miss hook, ``miss_radiance_kernel``; ref
-illumination.py:150-205), else the whole-path kernel (K2), and K2-SLS
-under SingleLightSource lighting; without them (curves,
-``build_bvh=True``) the wavefront engine (K3 or K5). The reference's jit
-wrapper ``estimate_illumination_jit`` is a plain call here.
+stream per ray, as in the reference. ``models/pathtracer.py::trace_pool``
+traces it as a probe pool, on the engine the reference picks (ref
+illumination.py:150-205): with packed path tables the segmented engine
+with one exact reorder before segment 0 (``ops/seg.py``, K1) when the
+scene has 8 chunks or more, or whatever its size under a cubemap or the
+Nishita sky at one sample (then with K1's miss-plane form and the miss
+hook, ``miss_radiance_kernel``), else the whole-path kernel (K2), and
+K2-SLS under SingleLightSource lighting; without them (curves,
+``build_bvh=True``), and under a cubemap or the sky at more samples, the
+wavefront engine (K3 or K5). Probe rays start at tmin 1e-3, the camera's
+at 0. The reference's jit wrapper ``estimate_illumination_jit`` is a
+plain call here.
 """
 
 from __future__ import annotations
@@ -35,21 +37,10 @@ import numpy as np
 import torch
 
 from raytracerfacility_tpu_torch import tracing
-from raytracerfacility_tpu_torch.enums import EnvironmentalLightingType
-from raytracerfacility_tpu_torch.models.pathtracer import (
-    RenderConfig,
-    _env_vector,
-    _refuse,
-    env_hook_args,
-    fused_compatible,
-    sorted_env_compatible,
-    trace_radiance_counted,
-)
+from raytracerfacility_tpu_torch.models.pathtracer import RenderConfig, trace_pool
 from raytracerfacility_tpu_torch.ops.environment import EnvironmentState
-from raytracerfacility_tpu_torch.ops.fused import RB, RR, render_pool_fused
 from raytracerfacility_tpu_torch.ops.math3d import dot, sample_hemisphere
 from raytracerfacility_tpu_torch.ops.rng import lcg_init, lcg_next
-from raytracerfacility_tpu_torch.ops.seg import render_pool_sorted, sorted_dispatch
 from raytracerfacility_tpu_torch.scene.compiled import CompiledScene
 from raytracerfacility_tpu_torch.utils.validation import check_finite
 
@@ -146,7 +137,6 @@ def estimate_illumination_counted(
 ):
     """:func:`estimate_illumination` that also returns the live rays traced
     over all segments (an int64 scalar tensor on the scene's device)."""
-    _refuse(config)
     device = scene.device
     p, s = probes.num_probes, config.samples
     with tracing.span("estimator.prep"):
@@ -180,36 +170,9 @@ def estimate_illumination_counted(
         origin = position + normal * push_normal_distance
 
     n_rays = p * 2 * s
-    env_xla = sorted_env_compatible(scene, env, config)
-    if fused_compatible(scene, env, config) or env_xla:
-        sls = config.lighting_type == EnvironmentalLightingType.SINGLE_LIGHT_SOURCE
-        env_vec = _env_vector(env)
-        # a host scalar into a device tensor: a copy that waits for the queue
-        with tracing.span("estimator.sync.tmin"):
-            env_vec[10] = _PROBE_TMIN
-        pool = (origin.reshape(n_rays, 3), ray_dir.reshape(n_rays, 3),
-                rng.reshape(n_rays),
-                torch.ones((n_rays,), dtype=torch.float32, device=device), env_vec)
-        chunk = scene.fused_chunk
-        # probe rays are incoherent from segment 0 (uniform hemisphere
-        # directions off scattered triangles): scenes of 8 chunks or more
-        # presort them on the segmented engine, as every pool under a
-        # cubemap or the sky does. The reference decides by the chunk
-        # count alone (its call passes no ray count)
-        if not sls and (env_xla or sorted_dispatch(scene.fused, rays=0,
-                                                   chunk=chunk, incoherent=True)):
-            out = render_pool_sorted(
-                scene.fused, *pool, bounces=config.bounces, chunk=chunk,
-                presort=True, **env_hook_args(env, config))
-        else:
-            out = render_pool_fused(scene.fused, *pool, bounces=config.bounces,
-                                    chunk=chunk, lighting=int(sls))
-        radiance, rays = out[0], out[4]
-    else:
-        state, rays = trace_radiance_counted(
-            scene, env, config, origin.reshape(n_rays, 3),
-            ray_dir.reshape(n_rays, 3), rng.reshape(n_rays), _PROBE_TMIN)
-        radiance = state.st[RR:RB + 1].T
+    radiance, _, _, _, rays = trace_pool(
+        scene, env, config, origin.reshape(n_rays, 3), ray_dir.reshape(n_rays, 3),
+        rng.reshape(n_rays), _PROBE_TMIN, probe=True)
     with tracing.span("estimator.reduce"):
         path_radiance = radiance.reshape(p, 2, s, 3)
 

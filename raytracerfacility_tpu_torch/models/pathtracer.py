@@ -4,32 +4,38 @@ Port of the camera path of ``raytracerfacility_tpu/models/pathtracer.py``:
 ``RenderConfig``, ``FrameBuffers``, ``init_frame``, the wavefront engine
 (the ``trace_closest`` and ``trace_any`` dispatch, ``PathState``,
 ``init_path_state``, ``_segment``, ``_sorted_state_loop``, ``sort_state_by_index``,
-``trace_radiance_counted``), ``fused_compatible``,
-``fused_camera_compatible``, ``sorted_env_compatible``,
-``_pool_fused_slots`` (split here into :func:`camera_pool` and the engine
-dispatch), ``render_samples``,
+``trace_radiance_counted``), the engine dispatch (the reference's
+``fused_compatible``, ``fused_camera_compatible``, ``sorted_env_compatible``
+and the branches of its ``_pool_fused_slots`` and of
+``illumination.estimate_illumination``, here the one function
+:func:`trace_pool`), ``_pool_fused_slots`` (split here into
+:func:`_camera_rays` and :func:`trace_pool`; :func:`camera_pool` gives the
+rays with the path engines' other arguments), ``render_samples``,
 ``finalize_frame``, ``render_frame``, ``render_frame_counted``,
 ``render_samples_frames_pooled``, ``_frame_pool_group`` and
 ``render_frames_counted``.
 
-Camera pools of scenes with packed path tables run on the path engines:
-Scene lighting with the flat colour on the segmented engine (``ops/seg.py``,
-kernel K1) for pools of 2^19 rays and more and on the whole-path engine
-(``ops/fused.py``, K2) below that; a cubemap under Scene lighting and the
-Nishita sky under Skydome on the segmented engine at every pool size, with
-K1's miss-plane form and the miss hook (``ops/environment.py::
-miss_radiance``, kernel ``miss_radiance_kernel``), since K2 cannot shade
-such a miss (ref pathtracer.py:1012-1033); SingleLightSource lighting
-always on K2-SLS. Every other render (curves, spp > 1 without
-``samples_in_lanes``, or a scene built with ``build_bvh=True``, which has
-no path tables) runs the wavefront engine: trace on K3 (``ops/brute.py``)
-when the scene has its packed table, else on the LBVH walker K5
-(``ops/traverse.py``), the reference's order (pathtracer.py:114-157);
-shade in torch ops, one segment at a time, the cubemap or sky miss through
-the same ``miss_radiance``, and the CompressedBTF materials' colours
-through ``ops/btf.py::btf_colors`` (kernel ``btf_decode_kernel``). Not
-ported yet, and refused with ``NotImplementedError``: alpha testing and
-subsurface.
+Every ray pool, the camera's and the illumination estimator's, takes its
+engine in :func:`trace_pool`. Scenes with packed path tables run on the
+path engines: Scene lighting with the flat colour on the segmented engine
+(``ops/seg.py``, kernel K1) or the whole-path engine (``ops/fused.py``,
+K2), as ``ops/seg.py::sorted_dispatch`` picks; a cubemap under Scene
+lighting and the Nishita sky under Skydome on the segmented engine at
+every pool size, with K1's miss-plane form and the miss hook
+(``ops/environment.py::miss_radiance``, kernel ``miss_radiance_kernel``),
+since K2 cannot shade such a miss (ref pathtracer.py:1012-1033);
+SingleLightSource lighting always on K2-SLS. Every other pool (curves, a
+scene built with ``build_bvh=True``, which has no path tables,
+``enable_btf``, a cubemap or the sky at spp > 1 without
+``samples_in_lanes``) and the camera's samples loop (spp > 1 without
+``samples_in_lanes``) run the wavefront engine: trace on K3
+(``ops/brute.py``) when the scene has its packed table, else on the LBVH
+walker K5 (``ops/traverse.py``), the reference's order
+(pathtracer.py:114-157); shade in torch ops, one segment at a time, the
+cubemap or sky miss through the same ``miss_radiance``, and the
+CompressedBTF materials' colours through ``ops/btf.py::btf_colors``
+(kernel ``btf_decode_kernel``). Not ported yet, and refused with
+``NotImplementedError``: alpha testing and subsurface.
 
 The bottom-up energy recurrence of the reference (ref
 RayFunctions.cuh:152-171) is carried top-down as ``radiance += throughput
@@ -426,69 +432,6 @@ def _state_slots(state: PathState, shape):
 # --------------------------------------------------------------------------
 
 
-def fused_compatible(scene: CompiledScene, env: EnvironmentState,
-                     config: RenderConfig) -> bool:
-    """True when a ray pool fits the ported path engines' feature set
-    (ref pathtracer.py:852-872): packed tables (triangles, Default
-    materials), Scene lighting without a cubemap or SingleLightSource
-    (which ignores the cubemap, Environment.cuh:168), no alpha test, BTF
-    or subsurface."""
-    scene_mode = (config.lighting_type == EnvironmentalLightingType.SCENE
-                  and env.cubemap is None)
-    sls_mode = (config.lighting_type
-                == EnvironmentalLightingType.SINGLE_LIGHT_SOURCE)
-    return (
-        scene.fused is not None
-        and (scene_mode or sls_mode)
-        and not config.alpha_test
-        and not config.enable_btf
-        and not config.enable_subsurface
-    )
-
-
-def fused_camera_compatible(scene: CompiledScene, env: EnvironmentState,
-                            config: RenderConfig) -> bool:
-    """fused_compatible plus the camera RNG-layout gate: the path engines
-    fold spp into the pool, so multi-spp renders that did not opt into
-    ``samples_in_lanes`` keep the reference's sequential per-pixel stream
-    on the wavefront engine."""
-    return fused_compatible(scene, env, config) and (
-        config.samples == 1 or config.samples_in_lanes
-    )
-
-
-def sorted_env_compatible(scene: CompiledScene, env: EnvironmentState,
-                          config: RenderConfig) -> bool:
-    """True when a pool runs the segmented engine with its miss hook (ref
-    pathtracer.py:887-910): a cubemap under Scene lighting or the Nishita
-    sky under Skydome, which the whole-path kernel cannot shade, over the
-    path tables' feature set, and one sample a pixel or ``samples_in_lanes``."""
-    return (
-        scene.fused is not None
-        and direction_dependent(env, config.lighting_type)
-        and not config.alpha_test
-        and not config.enable_btf
-        and not config.enable_subsurface
-        and (config.samples == 1 or config.samples_in_lanes)
-    )
-
-
-def _on_path_engines(scene, env, config) -> bool:
-    """Whether a camera render takes :func:`_pool_fused_slots`."""
-    return (fused_camera_compatible(scene, env, config)
-            or sorted_env_compatible(scene, env, config))
-
-
-def env_hook_args(env, config) -> dict:
-    """``render_pool_sorted``'s miss-hook arguments for a ray-dependent
-    environment, else none."""
-    if not direction_dependent(env, config.lighting_type):
-        return {}
-    return {"env_state": env, "lighting_type": int(config.lighting_type),
-            "atmos_samples": config.atmosphere_samples,
-            "atmos_samples_light": config.atmosphere_samples_light}
-
-
 def _refuse(config) -> None:
     """Raise NotImplementedError naming what puts a render outside the
     ported engines."""
@@ -501,26 +444,83 @@ def _refuse(config) -> None:
     raise NotImplementedError(f"{reason}: not ported")
 
 
-def _env_vector(env: EnvironmentState) -> torch.Tensor:
+def _env_vector(env: EnvironmentState, tmin: float = 0.0) -> torch.Tensor:
     """16-wide environment vector (ref pathtracer.py:989-1004): [0:3]
     pre-gamma'd flat radiance, [3:6] raw ambient radiance, [6:9] sun
-    direction, [9] cone alpha; [10] primary-ray tmin stays 0."""
+    direction, [9] cone alpha; [10] the primary rays' tmin, 0 for camera
+    rays and written only for the probe pools' 1e-3 (ref
+    illumination.py:170)."""
     env_vec = torch.zeros((16,), dtype=torch.float32, device=env.color.device)
     env_vec[0:3] = flat_radiance(env)
     env_vec[3:6] = env.color * env.ambient_light_intensity
     env_vec[6:9] = env.sun_direction
     env_vec[9] = 1.0 - env.light_size
+    if tmin:
+        # a host scalar into a device tensor: a copy that waits for the queue
+        with tracing.span("estimator.sync.tmin"):
+            env_vec[10] = tmin
     return env_vec
 
 
+def trace_pool(scene: CompiledScene, env: EnvironmentState, config: RenderConfig,
+               origin, direction, rng, tmin: float, probe: bool = False):
+    """Trace a flat ray pool ((R, 3) rays, (R,) RNG states as uint32 values
+    in int64, primary tmin ``tmin``) on the engine the reference picks for
+    it, and return (radiance, first normal, first albedo, first position),
+    each (R, 3), and the live rays traced (ref pathtracer.py:1012-1033 for
+    camera pools, illumination.py:153-205 for ``probe`` pools):
+
+    * the wavefront engine when the scene has no packed path tables (curves,
+      ``build_bvh=True``) or with ``enable_btf``, which the path engines do
+      not shade;
+    * K2-SLS under SingleLightSource lighting (it ignores the cubemap);
+    * under a cubemap or the Nishita sky, the segmented engine with K1's
+      miss-plane form and the miss hook at every pool size, since K2
+      cannot shade such a miss; but only for one sample a pixel or
+      ``samples_in_lanes``, the reference's camera gate, which it applies
+      to probe pools too: a sky or cubemap probe pool of more samples
+      takes the wavefront engine;
+    * else :func:`ops.seg.sorted_dispatch` picks the segmented engine or
+      K2: by the ray count for camera pools, by the chunk count for probe
+      pools, whose incoherent rays the segmented engine presorts.
+
+    Every pooled path trace of the port comes here; only the camera's
+    samples loop (spp > 1 without ``samples_in_lanes``) calls the wavefront
+    engine itself, a pool a sample. ``tests/test_torch_dispatch.py`` holds
+    the route of each case to the reference's predicates."""
+    _refuse(config)
+    hook = direction_dependent(env, config.lighting_type)
+    if (scene.fused is None or config.enable_btf
+            or (hook and config.samples > 1 and not config.samples_in_lanes)):
+        state, rays = trace_radiance_counted(scene, env, config, origin,
+                                             direction, rng, tmin)
+        return _state_slots(state, origin.shape) + (rays,)
+    pool = (origin, direction, rng,
+            torch.ones((origin.shape[0],), dtype=torch.float32,
+                       device=origin.device), _env_vector(env, tmin))
+    chunk = scene.fused_chunk
+    sls = config.lighting_type == EnvironmentalLightingType.SINGLE_LIGHT_SOURCE
+    if sls or not (hook or sorted_dispatch(
+            scene.fused, rays=0 if probe else origin.shape[0], chunk=chunk,
+            incoherent=probe)):
+        return render_pool_fused(scene.fused, *pool, bounces=config.bounces,
+                                 chunk=chunk, lighting=int(sls))
+    env_args = ({"env_state": env, "lighting_type": int(config.lighting_type),
+                 "atmos_samples": config.atmosphere_samples,
+                 "atmos_samples_light": config.atmosphere_samples_light}
+                if hook else {})
+    return render_pool_sorted(scene.fused, *pool, bounces=config.bounces,
+                              chunk=chunk, presort=probe, **env_args)
+
+
 @tracing.spanned("frame.camera")
-def camera_pool(scene, camera, env, config, seed):
+def _camera_rays(scene, camera, config, seed):
     """The camera rays of ``seed.shape[0]`` slots of the whole frame as ONE
     flat pool (the first half of ref ``_pool_fused_slots``,
     pathtracer.py:968-1004). ``seed`` is the (slot, 1, 1) per-slot RNG
     seed word (uint32 values in int64): slots are spp or progressive frames
     (ref ptx/CameraRendering.cu:42-44). Returns (origin (R, 3), direction
-    (R, 3), rng (R,), valid (R,), env_vec (16,))."""
+    (R, 3), rng (R,)), the rays :func:`trace_pool` takes."""
     height, width = config.height, config.width
     iy, ix = torch.meshgrid(
         torch.arange(height, dtype=torch.float32, device=scene.device),
@@ -534,44 +534,20 @@ def camera_pool(scene, camera, env, config, seed):
         camera, rng, ix[None], iy[None], width, height)
     n_rays = seed.shape[0] * height * width
     return (origin.reshape(n_rays, 3), direction.reshape(n_rays, 3),
-            rng.reshape(n_rays),
-            torch.ones((n_rays,), dtype=torch.float32, device=origin.device),
+            rng.reshape(n_rays))
+
+
+def camera_pool(scene, camera, env, config, seed):
+    """The rays of :func:`_camera_rays` with the path engines' other two
+    arguments, for a caller that drives an engine itself: (origin (R, 3),
+    direction (R, 3), rng (R,), valid (R,), env_vec (16,)). The frame loop
+    hands the rays to :func:`trace_pool`, which builds the other two for
+    the engine it picks."""
+    origin, direction, rng = _camera_rays(scene, camera, config, seed)
+    return (origin, direction, rng,
+            torch.ones((origin.shape[0],), dtype=torch.float32,
+                       device=origin.device),
             _env_vector(env))
-
-
-def _pool_fused_slots(scene, camera, env, config, seed):
-    """Trace the camera pool of :func:`camera_pool` on the path engine its
-    lighting and size pick and return the per-slot linear accumulators
-    (slot, H, W, 3) plus the live-ray count (ref pathtracer.py:1012-1093):
-    SingleLightSource pools always on K2-SLS; a cubemap or the sky on the
-    segmented engine with its miss hook, whatever the pool size (the
-    reference decides this before it looks at the size); flat Scene pools
-    on the segmented engine or K2."""
-    pool = camera_pool(scene, camera, env, config, seed)
-    chunk = scene.fused_chunk
-    sls = config.lighting_type == EnvironmentalLightingType.SINGLE_LIGHT_SOURCE
-    hook = env_hook_args(env, config)
-    if not sls and (hook or sorted_dispatch(scene.fused, rays=pool[0].shape[0],
-                                            chunk=chunk)):
-        out = render_pool_sorted(scene.fused, *pool, bounces=config.bounces,
-                                 chunk=chunk, **hook)
-    else:
-        out = render_pool_fused(scene.fused, *pool, bounces=config.bounces,
-                                chunk=chunk, lighting=int(sls))
-    radiance, normal, albedo, position, rays = out
-    shape = (seed.shape[0], config.height, config.width, 3)
-    return tuple(a.reshape(shape)
-                 for a in (radiance, normal, albedo, position)) + (rays,)
-
-
-def _pool_wavefront_slots(scene, camera, env, config, seed):
-    """:func:`_pool_fused_slots` on the wavefront engine (ref
-    pathtracer.py:1195-1214 and :1368-1384)."""
-    origin, direction, rng, _, _ = camera_pool(scene, camera, env, config, seed)
-    state, rays = trace_radiance_counted(scene, env, config, origin, direction,
-                                         rng, 0.0)
-    shape = (seed.shape[0], config.height, config.width, 3)
-    return _state_slots(state, shape) + (rays,)
 
 
 def render_samples(
@@ -584,13 +560,13 @@ def render_samples(
     """Trace ``config.samples`` jittered samples of every pixel and return
     *linear* per-pixel mean accumulators (color, normal, albedo, position)
     plus the live-ray count (ref ptx/CameraRendering.cu:32-110). Per-pixel
-    RNG seeding matches the reference: Init(pixel index, frame id). Pooled
-    spp (the path engines, or ``samples_in_lanes``) seed sample s with
-    ``frame_id + 0x85EBCA6B * s``; otherwise the samples run one after
-    another on the wavefront engine and carry each pixel's RNG stream
-    (ref pathtracer.py:1216-1240). The reference's row-band, sample-count
-    and stream arguments serve its multi-device split, which is not
-    ported."""
+    RNG seeding matches the reference: Init(pixel index, frame id). One
+    sample a pixel, or spp with ``samples_in_lanes``, is one pool on
+    :func:`trace_pool`, sample s seeded with ``frame_id + 0x85EBCA6B * s``;
+    otherwise the samples run one after another on the wavefront engine
+    and carry each pixel's RNG stream (ref pathtracer.py:1216-1240). The
+    reference's row-band, sample-count and stream arguments serve its
+    multi-device split, which is not ported."""
     _refuse(config)
     # ref pathtracer.py:1104-1105 and :1177: base seed frame_id +
     # 0x9E3779B1 * stream (stream 0 here), plus 0x85EBCA6B per sample
@@ -598,11 +574,12 @@ def render_samples(
                          device=scene.device)[:, None, None]
     seed = (frame_id + 0x85EBCA6B * s_idx) & _MASK32
     inv_n = 1.0 / config.samples
-    if _on_path_engines(scene, env, config) or config.samples_in_lanes:
-        pool = (_pool_fused_slots if _on_path_engines(scene, env, config)
-                else _pool_wavefront_slots)
-        *slots, rays = pool(scene, camera, env, config, seed)
-        return tuple(torch.sum(a, dim=0) * inv_n for a in slots) + (rays,)
+    if config.samples == 1 or config.samples_in_lanes:
+        *slots, rays = trace_pool(scene, env, config,
+                                  *_camera_rays(scene, camera, config, seed), 0.0)
+        shape = (config.samples, config.height, config.width, 3)
+        return tuple(torch.sum(a.reshape(shape), dim=0) * inv_n
+                     for a in slots) + (rays,)
 
     height, width = config.height, config.width
     iy, ix = torch.meshgrid(
@@ -692,13 +669,13 @@ def render_samples_frames_pooled(scene, camera, env, config, frame_id: int,
     separate ``render_samples(frame_id + f)`` call."""
     if config.samples != 1:
         raise ValueError("frame pooling requires samples == 1")
-    _refuse(config)
     f_idx = torch.arange(num_frames, dtype=torch.int64,
                          device=scene.device)[:, None, None]
     seed = (frame_id + f_idx) & _MASK32
-    pool = (_pool_fused_slots if _on_path_engines(scene, env, config)
-            else _pool_wavefront_slots)
-    return pool(scene, camera, env, config, seed)
+    *out, rays = trace_pool(scene, env, config,
+                            *_camera_rays(scene, camera, config, seed), 0.0)
+    shape = (num_frames, config.height, config.width, 3)
+    return tuple(a.reshape(shape) for a in out) + (rays,)
 
 
 def _frame_pool_group(config: RenderConfig, num_frames: int) -> int:

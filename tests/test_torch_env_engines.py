@@ -5,8 +5,8 @@ with ``miss``) against one reference segment, ``pallas_seg._segment_call(
 hook against the port's wavefront engine and both against the reference's
 wavefront engine at 48x48, 2 bounces (as tests/test_fused.py:531-574 holds
 the reference's two engines together); the strands scene under the sky;
-the illumination estimator under the sky; and the engine dispatch of
-``_pool_fused_slots``, the estimator and the camera facade.
+the illumination estimator under the sky; and the engine dispatch
+(``pathtracer.trace_pool``) of the camera, the estimator and the camera facade.
 
 Gates (tests/torch_parity.py, the reference's cross-engine gates): colour
 |d| p99 < 2e-3 and mean < 3e-4, albedo AOV p99.9 < 5e-3, live rays within
@@ -185,19 +185,19 @@ def test_segmented_hook_matches_wavefront_and_reference(bench, monkeypatch, kind
             enable_textures=False, enable_vertex_color=False),
         ref_pt.init_frame(W, W))
     config = pt.RenderConfig(width=W, height=W, bounces=2, lighting_type=lighting)
-    assert pt.sorted_env_compatible(port, env, config)
-    assert not pt.sorted_env_compatible(port_wave, env, config)
     calls = []
-    real = pt.render_pool_sorted
-    monkeypatch.setattr(pt, "render_pool_sorted",
-                        lambda *a, **k: calls.append(k) or real(*a, **k))
+    real, real_wave = pt.render_pool_sorted, pt.trace_radiance_counted
+    monkeypatch.setattr(pt, "render_pool_sorted", lambda *a, **k: calls.append(
+        ("sorted", k["env_state"] is env)) or real(*a, **k))
+    monkeypatch.setattr(pt, "trace_radiance_counted", lambda *a, **k: calls.append(
+        "wavefront") or real_wave(*a, **k))
     kernels.reset_launches()
     seg_frame, seg_rays = pt.render_frame_counted(port, cam, env, config,
                                                   pt.init_frame(W, W, "cpu"))
-    assert len(calls) == 1 and calls[0]["env_state"] is env  # the miss hook
+    assert calls == [("sorted", True)]  # the segmented engine with the miss hook
     wave_frame, wave_rays = pt.render_frame_counted(port_wave, cam, env, config,
                                                     pt.init_frame(W, W, "cpu"))
-    assert len(calls) == 1
+    assert calls == [("sorted", True), "wavefront"]  # no path tables
     assert kernels.LAUNCHES == {name: 0 for name in kernels.LAUNCHES}
     ref_frame = jax.tree.map(np.asarray, ref_frame)
     for mine, other, rays, other_rays, what in (
@@ -230,7 +230,9 @@ def test_hook_pool_matches_wavefront(bench, presort):
     d[:q, 2] *= -1.0
     rad, normal, albedo, position, rays = seg.render_pool_sorted(
         port.fused, o, d, rng, valid, env_vec, bounces=2, chunk=port.fused_chunk,
-        presort=presort, **pt.env_hook_args(env, config))
+        presort=presort, env_state=env, lighting_type=int(lighting),
+        atmos_samples=config.atmosphere_samples,
+        atmos_samples_light=config.atmosphere_samples_light)
     state, wave_rays = pt.trace_radiance_counted(port_wave, env, config, o, d, rng, 0.0)
     primary_miss = state.st[pt.FPX] == 999999.0
     assert 0 < int(primary_miss.sum()) < d.shape[0] // 2  # non-vacuous
@@ -289,8 +291,8 @@ def test_estimate_under_sky_matches_reference(monkeypatch):
     ref = ref_il.estimate_illumination(ref_scene, renv, ref_cfg, ref_probes, seed=3)
 
     calls = []
-    real = il.render_pool_sorted
-    monkeypatch.setattr(il, "render_pool_sorted",
+    real = pt.render_pool_sorted
+    monkeypatch.setattr(pt, "render_pool_sorted",
                         lambda *a, **k: calls.append(k) or real(*a, **k))
     cfg = pt.RenderConfig(bounces=2, samples=1,
                           lighting_type=EnvironmentalLightingType.SKYDOME)

@@ -38,6 +38,7 @@ from raytracerfacility_tpu.scene import (
 from raytracerfacility_tpu_torch.convert import probes_from_numpy
 from raytracerfacility_tpu_torch.enums import EnvironmentalLightingType
 from raytracerfacility_tpu_torch.models import illumination as il
+from raytracerfacility_tpu_torch.models import pathtracer as pt
 from raytracerfacility_tpu_torch.models.pathtracer import RenderConfig
 from raytracerfacility_tpu_torch.models.renderer import EnvironmentProperties
 from raytracerfacility_tpu_torch.ops.math3d import sample_hemisphere
@@ -124,7 +125,7 @@ def scenes():
             "bvh": (ref_bvh, scene.build("cpu", build_bvh=True))}
 
 
-# route -> (scene, lighting, the port's engine entry it must take)
+# route -> (scene, lighting, the engine entry the port's dispatch must call)
 ROUTES = {"segmented": ("fused", "scene", "render_pool_sorted"),
           "sls": ("fused", "sls", "render_pool_fused"),
           "bvh": ("bvh", "scene", "trace_radiance_counted")}
@@ -148,8 +149,8 @@ def test_estimate_matches_reference(scenes, monkeypatch, route):
                                        ref_probes, seed=3)
 
     calls = []
-    real = getattr(il, entry)
-    monkeypatch.setattr(il, entry, lambda *a, **k: calls.append(k) or real(*a, **k))
+    real = getattr(pt, entry)
+    monkeypatch.setattr(pt, entry, lambda *a, **k: calls.append(k) or real(*a, **k))
     cfg = RenderConfig(bounces=2, samples=2, lighting_type=(
         EnvironmentalLightingType.SINGLE_LIGHT_SOURCE if sun
         else EnvironmentalLightingType.SCENE))
