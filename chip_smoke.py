@@ -566,9 +566,11 @@ def check_rounds(device):
         m = ROUND_WARPS * sweep.WARP
         rec, c_e, w_e = sweep.sweep(*tables, brute.TRI_CHUNK, o[:m], d[:m],
                                     planes[6][:m], planes[7][:m],
-                                    planes[7][:m] > planes[6][:m], "k3", any_hit)
+                                    planes[7][:m] > planes[6][:m], "k3", any_hit,
+                                    run_pairs=brute.RUN_PAIRS)
         rounds = rec["rounds"][::sweep.WARP]
-        equal = torch.equal(c_e, counts[:, :m]) and torch.equal(w_e, wrows[:ROUND_WARPS])
+        equal = (torch.equal(c_e, counts[:, :m])
+                 and torch.equal(w_e, wrows[:, :ROUND_WARPS]))
         print(f"  K3 {'any-hit' if any_hit else 'closest'} on "
               f"{tables[0].shape[0] // brute.TRI_CHUNK} chunks that every ray enters, "
               f"{ROUND_RAYS} rays ({int((want[1] >= 0).sum())} hit): "
@@ -617,16 +619,20 @@ SAMPLE_WARPS = 256
 
 
 def sweep_work(tables, chunk, rays, kernel, best_t, what, layout, any_hit=False,
-               warps=SAMPLE_WARPS):
+               warps=SAMPLE_WARPS, run_pairs=True):
     """The sweep's work on a strided sample of whole warps of a launch.
     ``rays`` = (o (n, 3), d (n, 3), tmin, tmax, live), ``kernel`` = the
-    kernel's (counters, warp rows) from a ``stats=True`` launch, ``best_t``
-    each ray's final best t (any-hit: DEAD where occluded). The kernel's
-    counters must equal ``ops/sweep.py``'s "warp" emulation exactly; the
-    "index" emulation without the cull pad is the earlier kernels' work;
-    the floor is a cull at the final best t (``sweep.floor_runs``; an
-    occluded any-hit ray one row). Returns {name: (rows a ray mean, p99,
-    warp rows mean, max)} for "index", "kernel", "floor"."""
+    kernel's (counters, warp counters) from a ``stats=True`` launch,
+    ``best_t`` each ray's final best t (any-hit: DEAD where occluded). The
+    kernel's counters must equal ``ops/sweep.py``'s "warp" emulation
+    exactly; the "index" emulation without the cull pad is the earlier
+    kernels' work; the floor is a cull at the final best t
+    (``sweep.floor_runs``; an occluded any-hit ray one row). Returns
+    {name: (rows a ray mean, p99, warp rows mean, max)} for "index",
+    "kernel", "floor", and "runs": (run iterations a warp mean, max) of the
+    kernel and of the emulation that culls every run of a visited chunk
+    (``run_pairs=False``, the kernel before the run pairs). ``run_pairs``:
+    whether the kernel culls runs as (ray, run) pairs (K3: ``brute.RUN_PAIRS``)"""
     import torch
 
     from raytracerfacility_tpu_torch.ops import brute, sweep
@@ -642,10 +648,12 @@ def sweep_work(tables, chunk, rays, kernel, best_t, what, layout, any_hit=False,
     idx = (w[:, None] * sweep.WARP + torch.arange(sweep.WARP)).reshape(-1)
     args = (*tables, chunk, o[idx], d[idx], tmin[idx], tmax[idx], live[idx], layout)
     t0 = time.perf_counter()
-    rec, counts, wrows = sweep.sweep(*args, any_hit=any_hit, order="warp")
+    rec, counts, wrows = sweep.sweep(*args, any_hit=any_hit, order="warp",
+                                     run_pairs=run_pairs)
     rounds = rec["rounds"][::sweep.WARP]
-    equal = torch.equal(counts, kernel[0][:, idx]) and torch.equal(wrows, kernel[1][w])
+    equal = torch.equal(counts, kernel[0][:, idx]) and torch.equal(wrows, kernel[1][:, w])
     _, old, old_w = sweep.sweep(*args, any_hit=any_hit, order="index", pad=False)
+    _, every, every_w = sweep.sweep(*args, any_hit=any_hit, order="warp", run_pairs=False)
     sub = tables[0].shape[0] // tables[1].shape[0]
     tri, cur, floor_w = sweep.floor_runs(tables[1], tables[2], chunk, sub, o[idx],
                                          d[idx], tmin[idx], best_t[idx])
@@ -656,7 +664,7 @@ def sweep_work(tables, chunk, rays, kernel, best_t, what, layout, any_hit=False,
         floor_w = floor_w + hit.view(-1, sweep.WARP).any(1)
     lv = live[idx]
     out = {}
-    for name, rows, wr in (("index", old[4], old_w), ("kernel", counts[4], wrows),
+    for name, rows, wr in (("index", old[4], old_w[0]), ("kernel", counts[4], wrows[0]),
                            ("floor", floor, floor_w)):
         r = rows[lv].double()
         out[name] = (float(r.mean()), _quantile(r, 0.99), float(wr.double().mean()),
@@ -672,6 +680,14 @@ def sweep_work(tables, chunk, rays, kernel, best_t, what, layout, any_hit=False,
     for name, (mean, p99, wmean, wmax) in out.items():
         print(f"    rows tested a ray ({name}): mean {mean:.2f}, p99 {p99:.0f}; "
               f"row iterations a warp: mean {wmean:.1f}, max {wmax:.0f}")
+    out["runs"] = (float(wrows[1].double().mean()), float(wrows[1].max()),
+                   float(every_w[1].double().mean()), float(every_w[1].max()))
+    same_rows = torch.equal(every[4], counts[4]) and torch.equal(every_w[0], wrows[0])
+    print(f"    run iterations a warp: kernel mean {out['runs'][0]:.1f}, max "
+          f"{out['runs'][1]:.0f}; culling every run mean {out['runs'][2]:.1f}, max "
+          f"{out['runs'][3]:.0f} (run slabs a live ray "
+          f"{float(every[2][lv].double().mean()):.1f}; rows and row iterations "
+          f"equal: {same_rows})")
     if not equal:
         raise AssertionError(f"{what}: kernel counters differ from the emulation")
     return out
@@ -804,8 +820,8 @@ def fused_work(tables, chunk, rays, rng, env, out_k, what, bounces=None,
     which must equal them and the kernel's output there exactly. The floor
     is a cull at each ray's final best t in each sweep (an occluded
     shadow ray one row). Returns {record: (rows a ray mean, p99, row
-    iterations a warp mean, max, floor rows a ray mean)}, rays counted
-    where live at their first sweep."""
+    iterations a warp mean, max, floor rows a ray mean, run iterations a
+    warp mean)}, rays counted where live at their first sweep."""
     import torch
 
     from raytracerfacility_tpu_torch.ops import brute, fused, sweep
@@ -818,7 +834,7 @@ def fused_work(tables, chunk, rays, rng, env, out_k, what, bounces=None,
         out_s, _, counts, wrows = fused.fused_path(tables, rays, rng, env, bounces,
                                                    chunk, stats=True)
     counts = counts.view(-1, len(sweep.STATS), rays.shape[1])
-    wrows = wrows.view(counts.shape[0], -1)
+    wrows = wrows.view(counts.shape[0], len(sweep.WARP_STATS), -1)
     nw = rays.shape[1] // sweep.WARP
     w = torch.arange(0, nw, max(1, nw // warps), device=rays.device)
     idx = (w[:, None] * sweep.WARP + torch.arange(sweep.WARP, device=rays.device)).reshape(-1)
@@ -830,8 +846,9 @@ def fused_work(tables, chunk, rays, rng, env, out_k, what, bounces=None,
         out_r, _, sweeps = fused._fused_path_replay(tables, sub_rays, sub_rng, env,
                                                     bounces, chunk)
     want = fused._replay_counts(sweeps, stacked=sls)
-    want = want[0].view(-1, *want[0].shape[-2:]), want[1].view(-1, want[1].shape[-1])
-    equal = (torch.equal(counts[:, :, idx], want[0]) and torch.equal(wrows[:, w], want[1])
+    want = want[0].view(-1, *want[0].shape[-2:]), want[1].view(-1, *want[1].shape[-2:])
+    equal = (torch.equal(counts[:, :, idx], want[0])
+             and torch.equal(wrows[:, :, w], want[1])
              and torch.equal(out_s, out_k) and torch.equal(out_r, out_k[:, idx]))
     sub = tables[0].shape[0] // tables[1].shape[0]
     floors = []
@@ -851,13 +868,15 @@ def fused_work(tables, chunk, rays, rng, env, out_k, what, bounces=None,
         c = want[0][k][:, lv].double()
         rows = c[4]
         out[name] = (float(rows.mean()), _quantile(rows, 0.99),
-                     float(want[1][k].double().mean()), float(want[1][k].max()),
-                     float(floors[k][lv].double().mean()))
+                     float(want[1][k][0].double().mean()), float(want[1][k][0].max()),
+                     float(floors[k][lv].double().mean()),
+                     float(want[1][k][1].double().mean()))
         print(f"    {name}: a live ray chunk slabs {float(c[0].mean()):.2f}, chunks "
               f"entered {float(c[1].mean()):.2f}, run slabs {float(c[2].mean()):.2f}, "
               f"runs entered {float(c[3].mean()):.2f}, rows tested mean "
               f"{out[name][0]:.2f} (p99 {out[name][1]:.0f}, floor {out[name][4]:.2f}); "
-              f"row iterations a warp mean {out[name][2]:.1f}, max {out[name][3]:.0f}")
+              f"row iterations a warp mean {out[name][2]:.1f}, max {out[name][3]:.0f}, "
+              f"run iterations a warp mean {out[name][5]:.1f}")
     if not equal:
         raise AssertionError(f"{what}: counters or outputs differ from the replay")
     return out
@@ -1071,7 +1090,8 @@ def k4_work(tables, planes, n, floor, what, out_k):
     tests, instances entered, object chunks entered) of a cull at each
     ray's final best t (:func:`culled_tests_inst`), and the earlier
     one-thread-a-ray kernel's instance box tests a ray (all of them).
-    Returns {counter name: mean a ray} plus the warps' row iterations."""
+    Returns {counter name: mean a ray} plus the warps' row and run
+    iterations."""
     import torch
 
     from raytracerfacility_tpu_torch.ops import inst, inst_sweep
@@ -1087,12 +1107,13 @@ def k4_work(tables, planes, n, floor, what, out_k):
     rec, c_e, w_e = inst_sweep.sweep_instanced(host, torch.stack(p[0:3], 1),
                                                torch.stack(p[3:6], 1), p[6], p[7])
     counts, wrows, out = counts.to(cpu), wrows.to(cpu), out.to(cpu)
-    equal = (torch.equal(c_e, counts[:, idx]) and torch.equal(w_e, wrows[w])
+    equal = (torch.equal(c_e, counts[:, idx]) and torch.equal(w_e, wrows[:, w])
              and torch.equal(rec, out[:, idx]))
     main = torch.equal(out, out_k.to(cpu))
     mean = {name: float(counts[k].double().mean())
             for k, name in enumerate(inst_sweep.STATS)}
-    mean["row iterations a warp"] = float(wrows.double().mean())
+    mean["row iterations a warp"] = float(wrows[0].double().mean())
+    mean["run iterations a warp"] = float(wrows[1].double().mean())
     tests, pairs, chunks = floor
     print(f"  K4 {what} work: counters of {w.numel()} warps == replay: {equal}, "
           f"record == the main path's on all {n} rays: {main} "
@@ -3950,7 +3971,7 @@ def main(argv=None) -> int:
         p = [x[:n] for x in planes]
         work = sweep_work(tabs, brute.TRI_CHUNK, (torch.stack(p[0:3], 1),
                           torch.stack(p[3:6], 1), p[6], p[7], p[7] > p[6]), kernel,
-                          best_t, f"K3 {key}", "k3", any_hit)
+                          best_t, f"K3 {key}", "k3", any_hit, run_pairs=brute.RUN_PAIRS)
         k3[key] = (ms, plain_ms, b, by, n, work)
 
     # phase 10: small renders on the card against the same renders on the

@@ -84,11 +84,15 @@ struct BruteRows {
 // planes o/d/tmin/tmax: (n,) each; out: (4, n) planes t, prim, u, v
 // (t = tmax and prim = -1 on a miss). A lane whose window is empty
 // (tmax <= tmin, DEAD among them) cannot hit and takes no part in the
-// sweep. stats: (kStatPlanes, n) and warp_rows: (ceil(n / 32),), written
-// with kStats. Dynamic shared memory: sweep_smem(s.nchunks).
+// sweep. stats: (kStatPlanes, n) and warp_rows: (2, ceil(n / 32)), row
+// then run iterations a warp, written with kStats. Dynamic shared memory:
+// sweep_smem(s.nchunks).
 // Blocks an SM holds: 8 caps a thread at 64 registers. The sweep's two
 // instantiations (warp_sweep) took the closest hit to 70 registers and 7
-// blocks uncapped, 6% slower on config 7 than the one sweep's 63.
+// blocks uncapped, 6% slower on config 7 than the one sweep's 63. The
+// sweep culls every run of a visited chunk (kRunPairs false, ops/brute.py
+// RUN_PAIRS): with the run pairs config 7's closest hit and shadow rays
+// ran no faster (K3 any-hit 2% slower) on an H100.
 constexpr int kBruteBlocks = 8;
 
 template <bool kAnyHit, bool kStats>
@@ -110,7 +114,7 @@ brute_trace_kernel(const float* __restrict__ ox, const float* __restrict__ oy,
                                 in ? dy[i] : 0.0f, in ? dz[i] : 0.0f, t0);
   SweepStats ss = {};
   const Boxes bx{s.subs, s.chunks, s.nchunks, s.chunk / s.sub, s.sub};
-  warp_sweep<BruteRows, kAnyHit, kStats>(
+  warp_sweep<BruteRows, kAnyHit, kStats, true, /*kRunPairs=*/false>(
       BruteRows{s.rows}, bx, ray, in && b.t > t0, b,
       sweep_lists + (threadIdx.x >> 5) * sweep_list(s.nchunks), ss);
   if (!in) return;  // after the last warp operation

@@ -39,7 +39,7 @@
 // boxes are float32 hulls of transformed corners. With kStats a lane counts
 // group and instance slabs tested, instances entered, and warp_sweep's
 // chunk slabs, chunks entered, run slabs, runs entered and rows tested
-// over all its instances; lane 0 its warp's row iterations.
+// over all its instances; lane 0 its warp's row and run iterations.
 //
 // Numerics as in path_common.cuh: built with -fmad=false, so the transform
 // rounds each product and each sum, left to right, as the plain PyTorch
@@ -115,11 +115,14 @@ __host__ __device__ inline int inst_words(int ninst) {
 
 // planes o/d/tmin/tmax: (n,) each; out: (5, n) planes t, prim, instance, u,
 // v (t = tmax, prim = instance = -1 on a miss); stats: (kInstStats, n) and
-// warp_rows: (ceil(n / 32),), written with kStats. Dynamic shared memory:
+// warp_rows: (2, ceil(n / 32)), row then run iterations a warp, written
+// with kStats. Dynamic shared memory:
 // kThreads / 32 x (inst_words(ninst) + chunk_words) words, chunk_words =
-// sweep_list(the most chunks of a geometry).
+// sweep_list(the most chunks of a geometry). 8 blocks an SM cap a thread
+// at 64 registers: the sweep's run pairs took it from 64 to 80 registers
+// and 6 blocks, and the canopy's primary rays up to 9% slower on an H100.
 template <bool kStats>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 8)
 inst_trace_kernel(const float* __restrict__ pox, const float* __restrict__ poy,
                   const float* __restrict__ poz, const float* __restrict__ pdx,
                   const float* __restrict__ pdy, const float* __restrict__ pdz,

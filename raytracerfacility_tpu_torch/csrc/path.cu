@@ -119,10 +119,11 @@ struct ShadowRows {
 
 // st: (NPLANES, stride) float planes, rng: (stride,) path RNG states, both
 // updated in place for rays [0, n). aov: (9, n) planes, written when `first`.
-// stats: (kStatPlanes, n) and warp_rows: (ceil(n / 32),), written with
-// kStats. kMissPlane: the miss-plane form (ref pallas_seg.py:258 xla_env),
-// which adds no flat radiance on a miss and writes miss: (n,), 1 for a live
-// ray that missed, else 0. Dynamic shared memory: sweep_smem(s.nchunks).
+// stats: (kStatPlanes, n) and warp_rows: (2, ceil(n / 32)), row then run
+// iterations a warp, written with kStats. kMissPlane: the miss-plane form
+// (ref pallas_seg.py:258 xla_env), which adds no flat radiance on a miss
+// and writes miss: (n,), 1 for a live ray that missed, else 0. Dynamic
+// shared memory: sweep_smem(s.nchunks).
 template <bool kStats, bool kMissPlane>
 __global__ void __launch_bounds__(kThreads)
 seg_segment_kernel(float* __restrict__ st, int* __restrict__ rng,
@@ -248,13 +249,16 @@ __device__ __forceinline__ void store_out(float* out, int n, int i,
 // pools (time_sweeps.py --alternate), 8 blocks (64 registers) ran K2 faster
 // than the 72 registers ptxas picks, and 10 blocks (48 registers, with
 // spills) K2-SLS faster than its 64: occupancy hides the trace's latency.
+// K2-SLS's sweeps cull every run of a visited chunk (kRunPairs false,
+// ops/fused.py SLS_RUN_PAIRS): under its 48 registers the run pairs'
+// spills made its first 1080p launch 4-11% slower.
 constexpr int kPathBlocks = 8;
 constexpr int kSlsBlocks = 10;
 
 // rays: (7, n) planes origin xyz, direction xyz, valid; rng: (n,).
 // out: (12, n) planes radiance rgb, normal xyz, albedo rgb, position xyz.
 // counts: (gridDim.x,) live ray-segments per block. stats: (kStatPlanes,
-// n) and warp_rows: (ceil(n / 32),), the sweep counters summed over the
+// n) and warp_rows: (2, ceil(n / 32)), the sweep counters summed over the
 // segments, written with kStats. Dynamic shared memory:
 // sweep_smem(s.nchunks).
 template <bool kStats>
@@ -297,8 +301,8 @@ fused_path_kernel(const float* __restrict__ rays, const int* __restrict__ rng,
 
 // K2-SLS: as fused_path_kernel, one segment with the SingleLightSource
 // shade. rays, rng, out and counts as there; stats: (2, kStatPlanes, n)
-// and warp_rows: (2, ceil(n / 32)), the closest-hit sweep's counters, then
-// the shadow sweep's.
+// and warp_rows: (2, 2, ceil(n / 32)), the closest-hit sweep's counters,
+// then the shadow sweep's.
 template <bool kStats>
 __global__ void __launch_bounds__(kThreads, kSlsBlocks)
 fused_sls_kernel(const float* __restrict__ rays, const int* __restrict__ rng,
@@ -315,7 +319,7 @@ fused_sls_kernel(const float* __restrict__ rays, const int* __restrict__ rng,
   SweepStats closest = {}, shadow = {};
   const Boxes bx{s.subs, s.chunks, s.nchunks, s.chunk / s.sub, s.sub};
   uint32_t* list = sweep_lists + (threadIdx.x >> 5) * sweep_list(s.nchunks);
-  warp_sweep<TriRows20, false, kStats>(
+  warp_sweep<TriRows20, false, kStats, true, /*kRunPairs=*/false>(
       TriRows20{s.tris}, bx, make_ray(p.ox, p.oy, p.oz, p.dx, p.dy, p.dz, env[10]),
       live, h, list, closest);
   Aov a;
@@ -323,7 +327,7 @@ fused_sls_kernel(const float* __restrict__ rays, const int* __restrict__ rng,
   float sdx = 0.0f, sdy = 0.0f, sdz = 0.0f, ndl = 0.0f;
   const bool cast = live && sls_begin(s, env, p, h, a, sdx, sdy, sdz, ndl);
   ShadowRows::Best b{kTMax, -1.0f};
-  warp_sweep<ShadowRows, true, kStats, false>(
+  warp_sweep<ShadowRows, true, kStats, /*kKeyed=*/false, /*kRunPairs=*/false>(
       ShadowRows{s.tris}, bx, make_ray(a.px, a.py, a.pz, sdx, sdy, sdz, kBounceTMin),
       cast, b, list, shadow);
   if (cast && b.id < 0.0f) sls_sun(env, p, a, ndl);
@@ -331,7 +335,8 @@ fused_sls_kernel(const float* __restrict__ rays, const int* __restrict__ rng,
     store_out(out, n, i, p, a);
     if (kStats) {
       store_stats(closest, stats, warp_rows, n, i);
-      store_stats(shadow, stats + kStatPlanes * n, warp_rows + (n + 31) / 32, n, i);
+      store_stats(shadow, stats + kStatPlanes * n, warp_rows + 2 * ((n + 31) / 32), n,
+                  i);
     }
   }
   block_count(live, counts);

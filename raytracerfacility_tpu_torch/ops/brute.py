@@ -30,6 +30,9 @@ from raytracerfacility_tpu_torch.ops.curve import intersect_round_cone
 
 TRI_CHUNK = 256  # rows per chunk, the first culling level
 SUB = 32  # rows per sub-run, the second culling level
+# K3 culls every run of a visited chunk, not as (ray, run) pairs
+# (csrc/brute.cu: warp_sweep<..., kRunPairs = false>)
+RUN_PAIRS = False
 COLS = 12  # v0(3) e1(3) e2(3) original prim(1) kind(1) pad(1)
 TMAX = 1e20
 DEAD = -3.0e38  # tmax of a lane whose result is not wanted: nothing accepts
@@ -259,9 +262,9 @@ def trace_planes(tables, planes, n: int, any_hit: bool, stats: bool = False):
     Returns (4, n) float32 planes t, prim, u, v as :func:`_trace_plain`
     describes. A ray whose tmax is :data:`DEAD` never hits. With
     ``stats`` it returns (planes, (5, n) int32 counters in
-    ``sweep.STATS`` order, (ceil(n / 32),) int32 row iterations a warp):
-    the kernel's own on the card, ``sweep.sweep``'s (order "warp") on the
-    CPU.
+    ``sweep.STATS`` order, (2, ceil(n / 32)) int32 counters a warp in
+    ``sweep.WARP_STATS`` order): the kernel's own on the card,
+    ``sweep.sweep``'s (order "warp") on the CPU.
 
     Replaces ``raytracerfacility_tpu/ops/pallas_brute.py:201
     _make_kernel(any_hit)``. On the H100 the kernel is bound by the rows
@@ -306,10 +309,11 @@ def _trace_counts(tables, planes, n, any_hit, order="warp", pad=True):
     over the 12-column table (the plain version of the kernel's
     ``stats``); a lane with an empty window takes no part."""
     p = [x[:n] for x in planes]
-    _, counts, warp_rows = sweep.sweep(
+    _, counts, warp = sweep.sweep(
         *tables, TRI_CHUNK, torch.stack(p[0:3], 1), torch.stack(p[3:6], 1),
-        p[6], p[7], p[7] > p[6], "k3", any_hit=any_hit, order=order, pad=pad)
-    return counts, warp_rows
+        p[6], p[7], p[7] > p[6], "k3", any_hit=any_hit, order=order, pad=pad,
+        run_pairs=RUN_PAIRS)
+    return counts, warp
 
 
 def _planes(origin, direction, tmin, tmax):

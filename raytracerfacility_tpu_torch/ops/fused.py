@@ -40,6 +40,9 @@ from raytracerfacility_tpu_torch.ops.shading import brdf_weight, sample_brdf
 
 # triangles per cullable sub-run (Morton-ordered runs, the second level)
 SUB = 16
+# K2-SLS's sweeps cull every run of a visited chunk, not as (ray, run)
+# pairs (csrc/path.cu: warp_sweep<..., kRunPairs = false>); K2's do
+SLS_RUN_PAIRS = False
 _TMAX = 1e20
 _HIT_MAX = 1e19  # best t below this => real hit
 _BOUNCE_TMIN = 1e-3
@@ -456,11 +459,11 @@ class SweepReplay(NamedTuple):
     live: torch.Tensor  # (R,) bool
     record: dict  # sweep.sweep's record: t, nx, ny, nz, mid, id
     counts: torch.Tensor  # (5, R) int32, sweep.STATS
-    warp_rows: torch.Tensor  # (ceil(R / 32),) int32
+    warp: torch.Tensor  # (2, ceil(R / 32)) int32, sweep.WARP_STATS
 
 
 def _replay_sweep(tables, chunk, o, d, tmin, live, any_hit=False, order="warp",
-                  pad=True, pairs=None):
+                  pad=True, pairs=None, run_pairs=None):
     """A sweep of the whole-path kernels over the 20-column table from best
     t = TMAX (``sweep.sweep``'s arguments). The shadow sweep (``any_hit``)
     starts each lane with id -1, which no row's id is below, as the
@@ -471,10 +474,10 @@ def _replay_sweep(tables, chunk, o, d, tmin, live, any_hit=False, order="warp",
         z = torch.zeros_like(tmin)
         best0 = {"t": tmax, "id": torch.full_like(tmin, -1.0), "nx": z, "ny": z,
                  "nz": z, "mid": z}
-    rec, counts, wrows = sweep.sweep(*tables[:3], chunk, o, d, tmin, tmax, live, "k1",
-                                     any_hit=any_hit, order=order, pad=pad,
-                                     best0=best0, pairs=pairs)
-    return SweepReplay(o, d, tmin, live, rec, counts, wrows)
+    rec, counts, warp = sweep.sweep(*tables[:3], chunk, o, d, tmin, tmax, live, "k1",
+                                    any_hit=any_hit, order=order, pad=pad,
+                                    best0=best0, pairs=pairs, run_pairs=run_pairs)
+    return SweepReplay(o, d, tmin, live, rec, counts, warp)
 
 
 def _fused_path_replay(tables, rays, rng, env, bounces, chunk, order="warp",
@@ -508,15 +511,17 @@ def _fused_sls_replay(tables, rays, rng, env, chunk, order="warp", pad=True):
     as the kernel sweeps them (:func:`_replay_sweep`; the shadow ray of a
     lane that missed or faces away from the sun sweeps nothing): order
     "warp" is the kernel's (the shadow sweep visits its chunks in index
-    order, with pairs), order "index" the one-thread kernel's before it.
+    order, with row pairs; neither sweep culls runs as pairs), order
+    "index" the one-thread kernel's before it.
     Returns ((12, R) planes, live count, [closest-hit replay, shadow
     replay])."""
     st = init_state(rays[0:3].T, rays[3:6].T, rays[6])
     n = st.shape[1]
     on = st[ACT] > 0.0
     tmin = torch.full((n,), float(env[10]), dtype=torch.float32, device=rays.device)
+    run_pairs = SLS_RUN_PAIRS and order == "warp"
     closest = _replay_sweep(tables, chunk, st[OX:OZ + 1].T, st[DX:DZ + 1].T, tmin,
-                            on, order=order, pad=pad)
+                            on, order=order, pad=pad, run_pairs=run_pairs)
     live = torch.nonzero(on)[:, 0]
     sub = st[:, live]
     hit = tuple(closest.record[k][live] for k in ("t", "nx", "ny", "nz", "mid"))
@@ -527,7 +532,7 @@ def _fused_sls_replay(tables, rays, rng, env, chunk, order="warp", pad=True):
     o[live], d[live], cast[live] = shadow[0:3].T, shadow[3:6].T, armed
     shade = _replay_sweep(tables, chunk, o, d, torch.full_like(tmin, _BOUNCE_TMIN),
                           cast, any_hit=True, order="index", pad=pad,
-                          pairs=order == "warp")
+                          pairs=order == "warp", run_pairs=run_pairs)
     radiance, aov = _shade_sls_plain(tables, env, sub, rng[live], hit,
                                      occluded=shade.record["id"][live] >= 0.0)
     out = torch.zeros((12, n), dtype=torch.float32, device=rays.device)
@@ -539,13 +544,13 @@ def _fused_sls_replay(tables, rays, rng, env, chunk, order="warp", pad=True):
 
 def _replay_counts(replays, stacked: bool):
     """A kernel's counters from its sweeps' replays: summed over K2's
-    segments ((5, R) and (ceil(R / 32),) int32), or one record a sweep for
-    K2-SLS (``stacked``: (2, 5, R) and (2, ceil(R / 32)))."""
+    segments ((5, R) and (2, ceil(R / 32)) int32), or one record a sweep
+    for K2-SLS (``stacked``: (2, 5, R) and (2, 2, ceil(R / 32)))."""
     counts = torch.stack([r.counts for r in replays])
-    wrows = torch.stack([r.warp_rows for r in replays])
+    warp = torch.stack([r.warp for r in replays])
     if stacked:
-        return counts, wrows
-    return counts.sum(0, dtype=torch.int32), wrows.sum(0, dtype=torch.int32)
+        return counts, warp
+    return counts.sum(0, dtype=torch.int32), warp.sum(0, dtype=torch.int32)
 
 
 def _launch_pool(fn: str, name: str, tables, rays, rng, env, chunk: int,
@@ -554,7 +559,7 @@ def _launch_pool(fn: str, name: str, tables, rays, rng, env, chunk: int,
     it: ``rays`` (7, R) float32 planes, ``rng`` (R,) int32. Returns the
     (12, R) output planes and the live count, and with ``stats``, the
     leading shape of the counter records, the (*stats, 5, R) counters and
-    the (*stats, ceil(R / 32)) warp row iterations."""
+    the (*stats, 2, ceil(R / 32)) counters a warp."""
     n = rays.shape[1]
     device = rays.device
     check_kernel_inputs(tables, env, chunk, n, 12, device)
@@ -571,7 +576,8 @@ def _launch_pool(fn: str, name: str, tables, rays, rng, env, chunk: int,
                          device=device)
     work = () if stats is None else (
         torch.zeros((*stats, len(sweep.STATS), n), dtype=torch.int32, device=device),
-        torch.zeros((*stats, -(-n // sweep.WARP)), dtype=torch.int32, device=device))
+        torch.zeros((*stats, len(sweep.WARP_STATS), -(-n // sweep.WARP)),
+                    dtype=torch.int32, device=device))
     if n > 0:
         err = getattr(kernels.library(), fn)(
             rays.data_ptr(), rng.data_ptr(), out.data_ptr(), counts.data_ptr(),
@@ -594,8 +600,9 @@ def fused_path(tables, rays, rng, env, bounces: int, chunk: int, stats: bool = F
     ((12, R) float32 planes: radiance rgb, first-hit normal, albedo,
     position; live-ray count as an int64 scalar tensor). With ``stats`` it
     also returns the sweep's counters summed over the segments, (5, R)
-    int32 in ``sweep.STATS`` order and (ceil(R / 32),) int32 row
-    iterations a warp: the kernel's own on the card, the replay's
+    int32 in ``sweep.STATS`` order and (2, ceil(R / 32)) int32 counters a
+    warp in ``sweep.WARP_STATS`` order: the kernel's own on the card, the
+    replay's
     (:func:`_fused_path_replay`, order "warp") on the CPU.
 
     Replaces ``raytracerfacility_tpu/ops/pallas_fused.py:217 _kernel``
@@ -627,7 +634,7 @@ def fused_sls(tables, rays, rng, env, chunk: int, stats: bool = False):
     arguments and results as :func:`fused_path`; the path ends at its
     first hit. With ``stats`` the counters come as two records, the
     closest-hit sweep's and the shadow sweep's: (2, 5, R) and
-    (2, ceil(R / 32)) int32 (on the CPU :func:`_fused_sls_replay`'s).
+    (2, 2, ceil(R / 32)) int32 (on the CPU :func:`_fused_sls_replay`'s).
 
     Replaces the SingleLightSource phase of
     ``raytracerfacility_tpu/ops/pallas_fused.py:217 _kernel``

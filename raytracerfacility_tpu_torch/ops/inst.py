@@ -395,9 +395,9 @@ def trace_planes(tables, planes, n: int, stats: bool = False):
     against the instanced ``tables``. Returns (5, n) float32 planes: t
     (tmax on a miss), global prim, instance (both -1 on a miss), u, v.
     With ``stats`` it returns (planes, (8, n) int32 counters in
-    ``inst_sweep.STATS`` order, (ceil(n / 32),) int32 row iterations a
-    warp): the kernel's own on the card, ``inst_sweep.sweep_instanced``'s
-    on the CPU.
+    ``inst_sweep.STATS`` order, (2, ceil(n / 32)) int32 counters a warp
+    in ``sweep.WARP_STATS`` order): the kernel's own on the card,
+    ``inst_sweep.sweep_instanced``'s on the CPU.
 
     Replaces ``raytracerfacility_tpu/ops/pallas_inst.py:248
     _make_inst_kernel``. On the H100 the kernel is bound by the rows its
@@ -415,9 +415,9 @@ def trace_planes(tables, planes, n: int, stats: bool = False):
         from raytracerfacility_tpu_torch.ops import inst_sweep
 
         p = [x[:n] for x in planes]
-        _, counts, warp_rows = inst_sweep.sweep_instanced(
+        _, counts, warp = inst_sweep.sweep_instanced(
             tables, torch.stack(p[0:3], 1), torch.stack(p[3:6], 1), p[6], p[7])
-        return out, counts, warp_rows
+        return out, counts, warp
     if device.type != "cuda":
         raise ValueError(f"no kernel for device {device}")
     most = check_tables(tables, device)
@@ -426,7 +426,7 @@ def trace_planes(tables, planes, n: int, stats: bool = False):
         raise ValueError(f"{n} rays exceed the kernel's 32-bit offsets")
     out = torch.empty((5, n), dtype=torch.float32, device=device)
     counts = (torch.empty((8, n), dtype=torch.int32, device=device),
-              torch.empty((-(-n // 32),), dtype=torch.int32, device=device)) \
+              torch.empty((2, -(-n // 32)), dtype=torch.int32, device=device)) \
         if stats else (None, None)
     if n > 0:
         err = kernels.library("inst").rtf_inst_trace(

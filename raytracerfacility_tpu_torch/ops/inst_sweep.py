@@ -30,8 +30,8 @@ instance, prim) minimum over accepted rows, which equals
 
 Counters (:data:`STATS`, per ray, live lanes only): group slabs tested,
 instance slabs tested (keys and visits), instances entered (at a visit),
-then ``sweep.STATS`` summed over the instances; and per warp the row
-iterations it executes.
+then ``sweep.STATS`` summed over the instances; and per warp the row and
+run iterations it executes (``sweep.WARP_STATS``).
 """
 
 from __future__ import annotations
@@ -53,7 +53,8 @@ def sweep_instanced(tables, o, d, tmin, tmax):
     ``tmax`` (n,) against the instanced ``tables`` of
     ``ops/inst.py::pack_instanced_tables``. Returns ((5, n) float32 t,
     prim, instance, u, v as ``inst.trace_planes``; counters (8, n) int32
-    in :data:`STATS` order; warp row iterations (ceil(n / 32),) int32)."""
+    in :data:`STATS` order; warp counters (2, ceil(n / 32)) int32 in
+    ``sweep.WARP_STATS`` order)."""
     dev = o.device
     n = o.shape[0]
     nw = -(-n // WARP)
@@ -81,7 +82,7 @@ def sweep_instanced(tables, o, d, tmin, tmax):
     low = (1 << bits) - 1
     words_cap = min(n_inst, INST_CAP)
     stats = torch.zeros((len(STATS), npad), dtype=torch.int64, device=dev)
-    wrows = torch.zeros((nw,), dtype=torch.int64, device=dev)
+    warp = torch.zeros((len(sweep.WARP_STATS), nw), dtype=torch.int64, device=dev)
     gidx = torch.arange(n_groups, device=dev)
     size = torch.clamp(n_inst - gidx * GROUP, max=GROUP)
     group_of = torch.arange(n_inst, device=dev) // GROUP
@@ -161,6 +162,6 @@ def sweep_instanced(tables, o, d, tmin, tmax):
                                   ("u", rec["u"]), ("v", rec["v"])):
                     best[name][ln] = torch.where(took, val, best[name][ln])
                 stats[3:, ln] += counts.to(torch.int64)
-                wrows[wi[sel]] += wr.to(torch.int64)
+                warp[:, wi[sel]] += wr.to(torch.int64)
     out = torch.stack([best[k] for k in ("t", "prim", "inst", "u", "v")])[:, :n]
-    return out, stats[:, :n].to(torch.int32), wrows.to(torch.int32)
+    return out, stats[:, :n].to(torch.int32), warp.to(torch.int32)

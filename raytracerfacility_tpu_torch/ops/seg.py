@@ -407,8 +407,9 @@ def segment(tables, env, st, rng, n: int, is_first: bool, has_cont: bool,
     1e-3 bounce offset and return None. ``has_cont``: hits continue
     along a BRDF sample (false on the last segment). With ``stats`` it
     returns (AOVs or None, (5, n) int32 counters in ``sweep.STATS`` order,
-    (ceil(n / 32),) int32 row iterations a warp): the kernel's own on the
-    card, ``sweep.sweep``'s (order "warp") on the CPU.
+    (2, ceil(n / 32)) int32 counters a warp in ``sweep.WARP_STATS``
+    order): the kernel's own on the card, ``sweep.sweep``'s (order
+    "warp") on the CPU.
 
     ``miss``, a contiguous (n,) float32 tensor, selects the miss-plane form
     (the reference kernel's ``xla_env``, pallas_seg.py:258): a live ray
@@ -479,11 +480,11 @@ def _segment_counts(tables, env, st, n, is_first, chunk, order="warp", pad=True)
     tmin = torch.full((n,), _BOUNCE_TMIN, dtype=torch.float32, device=st.device)
     if is_first:
         tmin[:] = env[10]
-    _, counts, warp_rows = sweep.sweep(
+    _, counts, warp = sweep.sweep(
         tables[0], tables[1], tables[2], chunk, s[OX:OZ + 1].T, s[DX:DZ + 1].T,
         tmin, torch.full_like(tmin, sweep.K1_TMAX), s[ACT] > 0.0, "k1",
         order=order, pad=pad)
-    return counts, warp_rows
+    return counts, warp
 
 
 def _bperm_settings(bperm_rows, bperm_from, bperm_exact):

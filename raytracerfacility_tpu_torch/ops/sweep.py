@@ -12,9 +12,14 @@ chunk, run and row decisions of one of two designs, step for step:
   index. The warp visits its entered chunks in ascending word order and
   stops when the next key lies past every live lane's best t. In a visited
   chunk each lane re-tests the chunk's slab, then each run's, against its
-  own current best t; a run that more than :data:`PAIR_LANES` lanes enter
-  is tested one lane a ray, a run fewer enter as (ray, row) pairs spread
-  over the warp;
+  own current best t; a chunk that at most :data:`PAIR_LANES` lanes enter
+  (and whose runs are a power of two <= 32) has its runs culled first as
+  (ray, run) pairs at the chunk's entry best t, and the warp visits only
+  the union of the runs its lanes enter (``run_pairs``: K1, K2 and K4;
+  K2-SLS and K3 cull every run, ``warp_sweep<..., kRunPairs = false>``);
+  a run that more than
+  :data:`PAIR_LANES` lanes enter is tested one lane a ray, a run fewer
+  enter as (ray, row) pairs spread over the warp;
 - ``order="index"``: the one-thread-a-ray kernels before them, which test
   every chunk in index order with no warp order; with ``pairs`` it is
   K2-SLS's unkeyed any-hit sweep (``warp_sweep<..., kKeyed = false>``),
@@ -29,10 +34,13 @@ equals the brute-force plain versions (``fused._trace_plain``,
 ``brute._trace_plain``) wherever no cull drops the winning row.
 
 Counters (:data:`STATS`, per ray, live lanes only): chunk slabs tested,
-chunks entered, run slabs tested, runs entered, rows tested (an any-hit
-lane on its own up to its accept); and per warp the row iterations it
-executes (one lane a ray: every row of a run some lane enters; pairs:
-ceil(lanes x rows / 32)).
+chunks entered, run slabs tested for the ray (a chunk culled as pairs:
+every run there, then one a re-cull of a run its mask holds), runs
+entered, rows tested (an any-hit lane on its own up to its accept); and
+per warp (:data:`WARP_STATS`) the row iterations it executes (one lane a
+ray: every row of a run some lane enters; pairs: ceil(lanes x rows /
+32)) and the run iterations (one lane a ray: every run of a chunk some
+lane enters; pairs: ceil(lanes x runs / 32), then the union's runs).
 
 :func:`floor_runs` counts the runs a cull at each ray's final best t
 enters: the least work of any visit order, the ``culled_tests`` bound of
@@ -48,6 +56,7 @@ from raytracerfacility_tpu_torch.ops.math3d import parallel_slabs
 
 STATS = ("chunk slabs tested", "chunks entered", "run slabs tested",
          "runs entered", "rows tested")
+WARP_STATS = ("row iterations", "run iterations")
 CULL_PAD = 1.0 / 512.0  # csrc/sweep.cuh kCullPad
 # the culled boxes grow by this times their largest |coordinate|: about 30
 # times the largest outside distance a row test accepts on the recorded
@@ -73,9 +82,10 @@ def check_sweep_tables(tables) -> None:
 
 def empty_stats(n: int, device):
     """The kernel's counter outputs for ``n`` rays: (5, n) per ray and
-    (ceil(n / 32),) per warp, int32."""
+    (2, ceil(n / 32)) per warp, int32."""
     return (torch.empty((len(STATS), n), dtype=torch.int32, device=device),
-            torch.empty((-(-n // WARP),), dtype=torch.int32, device=device))
+            torch.empty((len(WARP_STATS), -(-n // WARP)), dtype=torch.int32,
+                        device=device))
 
 
 def ord_bits(x):
@@ -162,7 +172,8 @@ def _test_rows(layout, rows, o, d, tmin):
 def sweep(table, subs, chunks, chunk: int, o, d, tmin, tmax, live,
           layout: str, any_hit: bool = False, order: str = "warp",
           pad: bool = True, best0=None, skip_inverted: bool = False,
-          groups=None, pairs: bool | None = None, grow: bool | None = None):
+          groups=None, pairs: bool | None = None, grow: bool | None = None,
+          run_pairs: bool | None = None):
     """Replay the culled sweep over ``table`` (K1's 20-column or K3's
     12-column rows), ``subs`` (run boxes, K3's run kind in column 6) and
     ``chunks`` for rays ``o``, ``d`` (n, 3) with windows ``tmin``, ``tmax``
@@ -175,13 +186,16 @@ def sweep(table, subs, chunks, chunk: int, o, d, tmin, tmax, live,
     keys a group's chunks only if it enters the group's box, and a group
     no lane enters is passed over; its slab tests count as chunk slabs).
     ``pairs``: whether runs at most :data:`PAIR_LANES` lanes enter are
-    tested as (ray, row) pairs (default: in the "warp" order). ``grow``
+    tested as (ray, row) pairs (default: in the "warp" order);
+    ``run_pairs`` whether chunks as many enter have their runs culled as
+    (ray, run) pairs (default: ``pairs``; false replays the kernels before
+    the run pairs, which cull every run of a visited chunk). ``grow``
     (default: ``pad``) grows the culled boxes as the kernels do
     (:func:`slab`); ``pad`` without ``grow`` is the earlier kernels' cull.
     Returns (record: dict
     of (n,) tensors, K1 t/nx/ny/nz/mid/id, K3 t/id/u/v, and "rounds", the
     lane's warp's rounds; counters (5, n) int32 in :data:`STATS` order;
-    warp row iterations (ceil(n / 32),) int32)."""
+    warp counters (2, ceil(n / 32)) int32 in :data:`WARP_STATS` order)."""
     if order not in ("warp", "index") or layout not in LAYOUTS:
         raise ValueError(f"order {order!r} / layout {layout!r}")
     dev = o.device
@@ -205,7 +219,7 @@ def sweep(table, subs, chunks, chunk: int, o, d, tmin, tmax, live,
     sub = table.shape[0] // subs.shape[0]
     runs = chunk // sub
     stats = torch.zeros((len(STATS), npad), dtype=torch.int64, device=dev)
-    wrows = torch.zeros((nw,), dtype=torch.int64, device=dev)
+    warp = torch.zeros((len(WARP_STATS), nw), dtype=torch.int64, device=dev)
     cidx = torch.arange(nchunks, device=dev)
 
     bits = (nchunks - 1).bit_length()
@@ -213,8 +227,10 @@ def sweep(table, subs, chunks, chunk: int, o, d, tmin, tmax, live,
     # the kernels key and visit at most LIST_CAP entered chunks a round;
     # the index order has no list: one round over every chunk
     cap = LIST_CAP if order == "warp" else max(1, nchunks)
-    pairs_fit = (sub <= WARP and sub & (sub - 1) == 0
-                 and (order == "warp" if pairs is None else pairs))
+    pairs = order == "warp" if pairs is None else pairs
+    pairs_fit = sub <= WARP and sub & (sub - 1) == 0 and pairs
+    run_pairs_fit = (runs <= WARP and runs & (runs - 1) == 0
+                     and (pairs if run_pairs is None else run_pairs))
     lane = torch.arange(WARP, device=dev)
     sub_k = torch.arange(sub, device=dev)
     run_j = torch.arange(runs, device=dev)
@@ -296,10 +312,22 @@ def sweep(table, subs, chunks, chunk: int, o, d, tmin, tmax, live,
             cand &= in_chunk[:, None]
             if skip_inverted:
                 cand &= run_box[..., 0] <= run_box[..., 3]
+            # a chunk at most PAIR_LANES lanes of a warp enter: its runs
+            # culled as pairs (ceil(k / (32 / runs)) iterations), then the
+            # union of the lanes' masks visited; else every run
+            k_c = in_chunk.view(-1, WARP).sum(1)
+            run_paired = (k_c <= PAIR_LANES) & run_pairs_fit
+            union = cand.view(-1, WARP, runs).any(1).sum(1)
+            per = WARP // runs if run_pairs_fit else 1
+            warp[1].index_add_(0, wi, torch.where(k_c == 0, 0, torch.where(
+                run_paired, (k_c + per - 1) // per + union, runs)))
+            masked = run_paired.repeat_interleave(WARP)
             tested = torch.where(in_chunk, runs, 0)
             for j in torch.nonzero(cand.any(0))[:, 0].tolist():
                 r = c * runs + j
                 bt = best["t"][lanes]
+                # a masked lane re-culls each run its mask holds
+                stats[2, lanes] += masked & cand[:, j] & in_chunk
                 in_run, _ = slab(subs[r], lo_, io_, tm_, bt, pad, grow)
                 in_run &= in_chunk
                 if skip_inverted:
@@ -311,7 +339,7 @@ def sweep(table, subs, chunks, chunk: int, o, d, tmin, tmax, live,
                 # order) and the warp tests (ray, row) pairs on all lanes
                 k_w = in_run.view(-1, WARP).sum(1)
                 paired = (k_w <= PAIR_LANES) & pairs_fit
-                wrows.index_add_(0, wi, torch.where(
+                warp[0].index_add_(0, wi, torch.where(
                     k_w == 0, 0, torch.where(paired, (k_w * sub + WARP - 1) // WARP, sub)))
                 sel = torch.nonzero(in_run)[:, 0]
                 ray = lanes[sel]
@@ -333,7 +361,7 @@ def sweep(table, subs, chunks, chunk: int, o, d, tmin, tmax, live,
                     done[sel] = hit
                     last_chunk[lanes[done]] = c[done]
                     # a lane that accepts leaves the chunk after this run
-                    tested = torch.where(done, j + 1, tested)
+                    tested = torch.where(done & ~masked, j + 1, tested)
                     live[lanes] &= ~done
                     in_chunk &= ~done
                 else:
@@ -364,7 +392,7 @@ def sweep(table, subs, chunks, chunk: int, o, d, tmin, tmax, live,
 
     best["rounds"] = rounds.repeat_interleave(WARP)
     record = {k: v[:n] for k, v in best.items()}
-    return record, stats[:, :n].to(torch.int32), wrows.to(torch.int32)
+    return record, stats[:, :n].to(torch.int32), warp.to(torch.int32)
 
 
 def floor_runs(subs, chunks, chunk: int, sub: int, o, d, tmin, best_t,

@@ -135,20 +135,20 @@ def test_wrapper_stats_on_the_cpu_are_the_replay(kernel, pools, replays, monkeyp
     plain = "_fused_path_plain" if kernel == "K2" else "_fused_sls_plain"
     monkeypatch.setattr(fused, plain, lambda *args: (out_p, live_p))
     if kernel == "K2":
-        out, live, counts, wrows = fused.fused_path(
+        out, live, counts, warp = fused.fused_path(
             compiled.fused, rays, rng, env, BOUNCES, compiled.fused_chunk, stats=True)
         lead = ()
     else:
-        out, live, counts, wrows = fused.fused_sls(
+        out, live, counts, warp = fused.fused_sls(
             compiled.fused, rays, rng, env, compiled.fused_chunk, stats=True)
         lead = (2,)
     assert torch.equal(out, out_p) and torch.equal(live, live_p)
     n = rays.shape[1]
     assert counts.dtype == torch.int32 and counts.shape == (*lead, 5, n)
-    assert wrows.dtype == torch.int32 and wrows.shape == (*lead, -(-n // 32))
+    assert warp.dtype == torch.int32 and warp.shape == (*lead, 2, -(-n // 32))
     sweeps = replays[kernel, "warp"][2]
     want = fused._replay_counts(sweeps, stacked=kernel == "K2-SLS")
-    assert torch.equal(counts, want[0]) and torch.equal(wrows, want[1])
+    assert torch.equal(counts, want[0]) and torch.equal(warp, want[1])
     assert bool((counts.view(-1, 5, n)[:, 4].sum(1) > 0).all())
 
 
@@ -165,6 +165,6 @@ def test_no_sweep_enters_fewer_runs_than_the_final_t_floor(kernel, order, pools,
                                                 fused.SUB, r.o, r.d, r.tmin, best_t)
         assert int(cur.sum()) == 0
         assert bool((r.counts[3] >= tri).all())
-        assert bool((r.warp_rows >= warp_iters).all())
+        assert bool((r.warp[0] >= warp_iters).all())
         assert bool((r.counts[:, ~r.live] == 0).all())
     assert int(tri.sum()) > 0

@@ -5,8 +5,9 @@ through its plain emulation ``ops/sweep.py``, on the CPU.
   "warp": the kernels of ``csrc/sweep.cuh``) the hit record equals the
   brute-force plain versions bit for bit: K1's trace
   (``fused._trace_plain``, what ``seg._segment_plain`` shades) on the
-  bench scene's segments 0 and 1, K3's (``brute._trace_plain``) on a
-  strands scene, closest and any-hit.
+  bench scene's segments 0 and 1, incoherent rays and K2-SLS's shadow
+  sweep, K3's (``brute._trace_plain``) on a strands scene, closest and
+  any-hit, and one instance of K4's canopy.
 - The three BASELINE config-7 rays whose grazing start-cap hit lies before
   its run box's entry: without the cull pad the culled sweep takes a
   farther curve segment than brute force; with it, the same one. Their
@@ -15,6 +16,12 @@ through its plain emulation ``ops/sweep.py``, on the CPU.
   them; the CPU bake reproduces that launch's table.
 - The counters: on the CPU the wrappers' ``stats`` are the emulation's,
   and no sweep enters fewer runs than a cull at the final best t.
+- The run pairs (a chunk few lanes enter has its runs culled as (ray,
+  run) pairs, then only the union visited): on camera, bounce,
+  incoherent and shadow rays over K1's tables, K3's strands and one
+  instance of K4 (padding runs, chunk-group keys), every record and every
+  counter but the run slabs and run iterations equal the sweep that culls
+  every run.
 """
 
 from __future__ import annotations
@@ -28,6 +35,8 @@ import torch
 from raytracerfacility_tpu_torch.models.pathtracer import RenderConfig, camera_pool
 from raytracerfacility_tpu_torch.ops import brute, fused, seg, sweep
 from raytracerfacility_tpu_torch.ops.rng import to_int32
+from raytracerfacility_tpu_torch.scene import builder
+from raytracerfacility_tpu_torch.scene.procedural import build_canopy_scene
 from raytracerfacility_tpu_torch.scenes import bench_scene, strands_scene
 from tests import torch_parity  # noqa: F401  (one torch thread per worker)
 
@@ -86,6 +95,42 @@ def _strand_rays():
     return compiled.pallas_tris, planes, n
 
 
+def _incoherent_rays(compiled, n=512):
+    """``n`` rays from seeded points inside the bench scene's box in
+    seeded directions, as K1 state planes: an incoherent pool, like the
+    estimator's probe rays, whose warps enter most chunks with few lanes."""
+    g = torch.Generator().manual_seed(5)
+    lo, hi = compiled.fused[2][0, 0:3], compiled.fused[2][0, 3:6]
+    for c in compiled.fused[2][1:]:
+        if bool(c[0] <= c[3]):
+            lo, hi = torch.minimum(lo, c[0:3]), torch.maximum(hi, c[3:6])
+    o = lo + (hi - lo) * (0.05 + 0.9 * torch.rand((n, 3), generator=g))
+    d = torch.nn.functional.normalize(torch.randn((n, 3), generator=g), dim=1)
+    return fused.init_state(o, d, torch.ones(n))
+
+
+def _k4_geometry():
+    """The first geometry of the 3 x 3 canopy's instanced tables (chunks of
+    256 rows, runs of 32; its last chunk ends in padding runs with
+    inverted boxes) and 512 seeded object-space rays around it: K4's
+    sweep of one instance."""
+    scene = build_canopy_scene(rows=3, cols=3, variants=2)
+    t = builder.compile_shared_instanced(scene, "cpu", chunk=256, sub=32)
+    c0, nc = (int(x) for x in t["inst_chunks"][0])
+    runs = t["chunk"] // t["sub"]
+    cg = int(t["inst_chunk_groups"][0])
+    tables = (t["table"][c0 * t["chunk"]:(c0 + nc) * t["chunk"]],
+              t["sub_aabbs"][c0 * runs:(c0 + nc) * runs], t["obj_chunks"][c0:c0 + nc],
+              t["chunk_groups"][cg:cg + -(-nc // sweep.CHUNK_GROUP)])
+    box = tables[2]
+    lo, hi = box[:, 0:3].min(0).values, box[:, 3:6].max(0).values
+    g = torch.Generator().manual_seed(7)
+    n = 512
+    o = lo + (hi - lo) * (1.4 * torch.rand((n, 3), generator=g) - 0.2)
+    d = torch.nn.functional.normalize(torch.randn((n, 3), generator=g), dim=1)
+    return tables, t["chunk"], o, d, torch.full((n,), 1e-3), torch.full((n,), 100.0)
+
+
 @pytest.fixture(scope="module")
 def bench():
     return _bench_segments()
@@ -96,50 +141,144 @@ def strands():
     return _strand_rays()
 
 
-@pytest.mark.parametrize("order", ["index", "warp"])
-@pytest.mark.parametrize("case", ["k1 segment 0", "k1 segment 1", "k3 closest",
-                                  "k3 any-hit"])
-def test_sweep_equals_plain(case, order, bench, strands):
+@pytest.fixture(scope="module")
+def k4_geometry():
+    return _k4_geometry()
+
+
+CASES = ["k1 segment 0", "k1 segment 1", "k1 incoherent", "k1 shadow", "k3 closest",
+         "k3 any-hit", "k4 padding"]
+
+
+def _case(case, bench, strands, k4_geometry):
+    """(``sweep.sweep``'s positional arguments, its keywords, the lanes
+    that sweep, and a check of its record against the plain version).
+    "k1 shadow" is K2-SLS's shadow sweep over segment 1's rays (any-hit,
+    every lane starting from id -1, pairs in either order); "k4 padding"
+    one instance's sweep of K4 (padding runs skipped, keys culled by the
+    chunk-group boxes)."""
     if case.startswith("k1"):
         compiled, env, segments = bench
-        st, n, tmin = segments[int(case[-1])]
-        s = st[:, :n]
+        if case == "k1 incoherent":
+            s, n, tmin = _incoherent_rays(compiled), 512, fused._BOUNCE_TMIN
+        else:
+            st, n, tmin = segments[0 if case.endswith("0") else 1]
+            s = st[:, :n]
         live = s[fused.ACT] > 0.0
-        assert 0 < int(live.sum()) < n or case.endswith("0")
+        assert 0 < int(live.sum()) < n or case in ("k1 segment 0", "k1 incoherent")
         t = torch.full((n,), tmin, dtype=torch.float32)
-        rec, counts, wrows = sweep.sweep(
-            *compiled.fused[:3], compiled.fused_chunk, s[fused.OX:fused.OZ + 1].T,
-            s[fused.DX:fused.DZ + 1].T, t, torch.full((n,), sweep.K1_TMAX), live,
-            "k1", order=order)
-        want = fused._trace_plain(compiled.fused[0], s, tmin)
-        for k, name in enumerate(("t", "nx", "ny", "nz", "mid")):
-            assert torch.equal(rec[name][live], want[k][live]), name
-        assert int((want[0][live] < 1e19).sum()) > 0
-    else:
-        tables, planes, n = strands
-        any_hit = case.endswith("any-hit")
-        p = [x[:n] for x in planes]
-        rec, counts, wrows = sweep.sweep(
-            *tables, brute.TRI_CHUNK, torch.stack(p[0:3], 1), torch.stack(p[3:6], 1),
-            p[6], p[7], p[7] > p[6], "k3", any_hit=any_hit, order=order)
-        want = brute._trace_plain(tables[0], torch.stack(p), n)
-        hit = want[1] >= 0
+        tmax = torch.full((n,), sweep.K1_TMAX)
+        args = (*compiled.fused[:3], compiled.fused_chunk, s[fused.OX:fused.OZ + 1].T,
+                s[fused.DX:fused.DZ + 1].T, t, tmax, live, "k1")
+        table = compiled.fused[0]
+        if case == "k1 shadow":
+            z = torch.zeros(n)
+            kw = {"any_hit": True, "pairs": True, "best0": {
+                "t": tmax, "id": torch.full((n,), -1.0), "nx": z, "ny": z, "nz": z,
+                "mid": z}}
+            planes = torch.cat([s[fused.OX:fused.DZ + 1], t[None], tmax[None]])
+            want = brute._trace_plain(table, planes, n, kinds=False)[1] >= 0
+
+            def check(rec):
+                assert torch.equal((rec["id"] >= 0)[live], want[live])
+                assert 0 < int(want[live].sum()) < int(live.sum())
+            return args, kw, live, check
+        want = fused._trace_plain(table, s, tmin)
+
+        def check(rec):
+            for k, name in enumerate(("t", "nx", "ny", "nz", "mid")):
+                assert torch.equal(rec[name][live], want[k][live]), name
+            assert int((want[0][live] < 1e19).sum()) > 0
+        return args, {}, live, check
+    if case == "k4 padding":
+        (table, subs, chunks, groups), chunk, o, d, tmin, tmax = k4_geometry
+        n = o.shape[0]
+        args = (table, subs, chunks, chunk, o, d, tmin, tmax, tmax > tmin, "k3")
+        kw = {"skip_inverted": True, "groups": groups}
+        planes = torch.cat([o.T, d.T, tmin[None], tmax[None]])
+        want = brute._trace_plain(table, planes, n, kinds=False)
+
+        def check(rec):
+            for k, name in enumerate(("t", "id", "u", "v")):
+                assert torch.equal(rec[name], want[k]), name
+            assert 0 < int((want[1] >= 0).sum()) < n
+        return args, kw, tmax > tmin, check
+    tables, planes, n = strands
+    any_hit = case.endswith("any-hit")
+    p = [x[:n] for x in planes]
+    live = p[7] > p[6]
+    args = (*tables, brute.TRI_CHUNK, torch.stack(p[0:3], 1), torch.stack(p[3:6], 1),
+            p[6], p[7], live, "k3")
+    want = brute._trace_plain(tables[0], torch.stack(p), n)
+    hit = want[1] >= 0
+
+    def check(rec):
         assert 0 < int(hit.sum()) < n
         if any_hit:
             assert torch.equal(rec["id"] >= 0, hit)
         else:
             for k, name in enumerate(("t", "id", "u", "v")):
                 assert torch.equal(rec[name], want[k]), name
-        live = p[7] > p[6]
+    return args, {"any_hit": any_hit}, live, check
+
+
+@pytest.mark.parametrize("order", ["index", "warp"])
+@pytest.mark.parametrize("case", CASES)
+def test_sweep_equals_plain(case, order, bench, strands, k4_geometry):
+    args, kw, live, check = _case(case, bench, strands, k4_geometry)
+    rec, counts, warp = sweep.sweep(*args, order=order, **kw)
+    check(rec)
     # rows are tested in whole runs (any-hit: up to the accept), inside
     # the runs entered, which lie in the chunks entered
     assert bool((counts[:, ~live] == 0).all())
     assert bool((counts[1] <= counts[0]).all() and (counts[3] <= counts[2]).all())
     assert int(counts[4].sum()) > 0
     # a warp's row iteration tests at most 32 (ray, row) pairs
-    rows = torch.zeros(wrows.shape[0] * 32, dtype=torch.int32)
+    assert warp.shape == (len(sweep.WARP_STATS), -(-live.shape[0] // 32))
+    rows = torch.zeros(warp.shape[1] * 32, dtype=torch.int32)
     rows[:counts.shape[1]] = counts[4]
-    assert bool((32 * wrows >= rows.view(-1, 32).sum(1)).all())
+    assert bool((32 * warp[0] >= rows.view(-1, 32).sum(1)).all())
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_run_pairs_enter_the_runs_every_run_cull_enters(case, bench, strands,
+                                                        k4_geometry, monkeypatch):
+    """A chunk few lanes enter has its runs culled as (ray, run) pairs at
+    the chunk's entry best t, then only the union of the lanes' runs is
+    visited, each re-culled at the lane's current best t: against the
+    sweep that culls every run of a visited chunk (``run_pairs=False``,
+    the kernels before), the record, the chunks and runs entered, the rows
+    tested and the row iterations stay the same; only the run slabs and
+    the run iterations move. Each launch holds visits that at most and
+    more than PAIR_LANES lanes enter."""
+    args, kw, live, check = _case(case, bench, strands, k4_geometry)
+    order = "index" if case == "k1 shadow" else "warp"
+    rec, counts, warp = sweep.sweep(*args, order=order, **kw)
+    rec_0, counts_0, warp_0 = sweep.sweep(*args, order=order, run_pairs=False, **kw)
+    check(rec)
+    assert rec.keys() == rec_0.keys()
+    for name in rec:
+        assert torch.equal(rec[name], rec_0[name]), name
+    for k in (0, 1, 3, 4):
+        assert torch.equal(counts[k], counts_0[k]), sweep.STATS[k]
+    assert torch.equal(warp[0], warp_0[0])
+    # a pair-culled lane tests every run of the chunk for its ray, then
+    # re-culls each run its mask holds, among them every run it enters
+    assert bool((counts[2] >= counts[3]).all())
+    runs = args[3] // (args[0].shape[0] // args[1].shape[0])
+    assert bool((warp_0[1] % runs == 0).all())  # every run of each visit
+    # some warps take the pairs; on K1's tables they save run iterations
+    assert bool((warp[1] != warp_0[1]).any())
+    if case.startswith("k1"):
+        assert int(warp[1].sum()) < int(warp_0[1].sum())
+    # with every visit pair-culled, the run iterations of the warps that
+    # visit a chunk more than PAIR_LANES lanes enter change: the launch
+    # holds both kinds of visit
+    monkeypatch.setattr(sweep, "PAIR_LANES", sweep.WARP)
+    rec_all, _, warp_all = sweep.sweep(*args, order=order, **kw)
+    for name in rec:
+        assert torch.equal(rec_all[name], rec[name]), name
+    assert bool((warp_all[1] != warp[1]).any())
 
 
 @pytest.mark.parametrize("order", ["index", "warp"])
@@ -243,25 +382,25 @@ def test_wrapper_stats_on_the_cpu_are_the_emulation(bench, strands):
     compiled, env, segments = bench
     st, n, _ = segments[1]
     st_k, rng = st.clone(), torch.zeros(st.shape[1], dtype=torch.int32)
-    aov, counts, wrows = seg.segment(compiled.fused, env, st_k, rng, n, False, True,
-                                     compiled.fused_chunk, stats=True)
+    aov, counts, warp = seg.segment(compiled.fused, env, st_k, rng, n, False, True,
+                                    compiled.fused_chunk, stats=True)
     assert aov is None
     want = seg._segment_counts(compiled.fused, env, st, n, False, compiled.fused_chunk)
-    assert torch.equal(counts, want[0]) and torch.equal(wrows, want[1])
+    assert torch.equal(counts, want[0]) and torch.equal(warp, want[1])
     assert counts.dtype == torch.int32 and counts.shape == (5, n)
     tables, planes, n = strands
-    out, counts, wrows = brute.trace_planes(tables, planes, n, False, stats=True)
+    out, counts, warp = brute.trace_planes(tables, planes, n, False, stats=True)
     assert torch.equal(out, brute.trace_planes(tables, planes, n, False))
     want = brute._trace_counts(tables, planes, n, False)
-    assert torch.equal(counts, want[0]) and torch.equal(wrows, want[1])
-    assert wrows.shape == (-(-n // 32),)
+    assert torch.equal(counts, want[0]) and torch.equal(warp, want[1])
+    assert warp.shape == (2, -(-n // 32))
 
 
 @pytest.mark.parametrize("order", ["index", "warp"])
 def test_no_sweep_enters_fewer_runs_than_the_final_t_floor(order, strands):
     tables, planes, n = strands
     out = brute._trace_plain(tables[0], torch.stack([p[:n] for p in planes]), n)
-    counts, wrows = brute._trace_counts(tables, planes, n, False, order=order)
+    counts, warp = brute._trace_counts(tables, planes, n, False, order=order)
     p = [x[:n] for x in planes]
     # a DEAD lane's final best t is DEAD, so the floor enters nothing there
     tri, cur, warp_iters = sweep.floor_runs(
@@ -269,7 +408,7 @@ def test_no_sweep_enters_fewer_runs_than_the_final_t_floor(order, strands):
         torch.stack(p[3:6], 1), p[6], out[0])
     assert bool((counts[3] >= tri + cur).all())
     assert int((tri + cur).sum()) > 0
-    assert bool((wrows >= warp_iters).all())
+    assert bool((warp[0] >= warp_iters).all())
 
 
 @pytest.mark.parametrize("case", ["k1 segment 1", "k3 closest", "k3 any-hit"])

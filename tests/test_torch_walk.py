@@ -87,7 +87,7 @@ def test_k4_replay_matches_plain_and_reference_oracle():
                                         device="cpu")
     o, d = _rays(256)
     tmin, tmax = np.full(256, 1e-3, np.float32), np.full(256, 100.0, np.float32)
-    got, counts, warp_rows = _replay(tables, o, d, tmin, tmax)
+    got, counts, warp = _replay(tables, o, d, tmin, tmax)
     assert torch.equal(got, _plain(tables, o, d, tmin, tmax))
     ref_tables = ref_pack(geoms, inst_geom, mats, chunk=128, sub=16)
     ref = unfused(lambda o, d: _oracle(geoms, inst_geom, ref_tables, o, d, tmin, tmax),
@@ -101,7 +101,7 @@ def test_k4_replay_matches_plain_and_reference_oracle():
         np.testing.assert_array_equal(got[k].numpy()[hit], want[hit])
     # every live lane tests the one group box; hits test rows
     assert bool((counts[0] == 1).all()) and bool((counts[7][got[1] >= 0] > 0).all())
-    assert int(warp_rows.min()) > 0
+    assert warp.shape == (2, 8) and int(warp.min()) > 0
 
 
 def test_k4_replay_canopy_and_wrapper_stats():
@@ -111,14 +111,14 @@ def test_k4_replay_canopy_and_wrapper_stats():
     scene = build_canopy_scene(rows=3, cols=3, variants=2)
     tables = builder.compile_shared_instanced(scene, "cpu", chunk=256, sub=32)
     o, d, tmin, tmax = _canopy_rays()
-    got, counts, warp_rows = _replay(tables, o, d, tmin, tmax)
+    got, counts, warp = _replay(tables, o, d, tmin, tmax)
     want = _plain(tables, o, d, tmin, tmax)
     assert torch.equal(got, want) and int((got[1] >= 0).sum()) > 50
     planes = [torch.from_numpy(np.ascontiguousarray(x)) for x in
               (*o.T, *d.T, tmin, tmax)]
     out, c2, w2 = inst.trace_planes(tables, planes, o.shape[0], stats=True)
     assert torch.equal(out, want) and torch.equal(c2, counts)
-    assert torch.equal(w2, warp_rows)
+    assert torch.equal(w2, warp)
     # a ray enters no more instances than it tests, nor chunks
     assert bool((counts[2] <= counts[1]).all() and (counts[4] <= counts[3]).all())
 
