@@ -2,7 +2,8 @@
 """Drive the PyTorch port's camera paths on one NVIDIA GPU.
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``
-(``--only tea``: the build and the RNG seeding kernel's phase alone).
+(``--only tea``, ``reorder`` or ``cubemap``: the build and that kernel's
+phase alone).
 It builds the CUDA kernels from ``raytracerfacility_tpu_torch/csrc``,
 holds each kernel against its plain PyTorch version on the card (at small
 sizes, then at the shapes its path gives it), and drives each path through
@@ -2404,7 +2405,7 @@ def median_calls(render, reps=5):
 # Ray-dependent environments (phases 21-24): the bench scene at 1920x1080,
 # 8 bounces, 1 spp, 2 frames under the Nishita sky of
 # tests/test_fused.py:531-574 (sun (0.2, 0.8, 0.3), skylight 1) and under a
-# seeded (6, 512, 512, 4) cubemap of values in [0, 1.5] at skylight 0.9, on
+# seeded (6, 2048, 2048, 4) cubemap of values in [0, 1.5] at skylight 0.9, on
 # the segmented engine with K1's miss-plane form and the miss kernel after
 # every segment, held to the wavefront engine on the same scene built with
 # build_bvh=True (K5 and the miss kernel); BASELINE config 4 under the sky
@@ -2412,7 +2413,10 @@ def median_calls(render, reps=5):
 # under the sky on the wavefront engine (K3 and the miss kernel)
 ENV_FRAMES = 2
 ENV_SUN = (0.2, 0.8, 0.3)
-ENV_CUBE, ENV_CUBE_SEED = 512, 10
+# the cubemap cell's face (rtbench/configs/cfg2_cubemap_glossy_box.json):
+# 6 x 2048 x 2048 x 16 B = 403 MB, 8 times the L2, so the gathers' texels
+# come from HBM
+ENV_CUBE, ENV_CUBE_SEED = 2048, 10
 # the miss kernel against its plain version on every missed ray: the same
 # float32 operations in the same order (-fmad=false), the same float64 pow;
 # expf and sqrtf against torch's CUDA exp and sqrt may round apart:
@@ -2427,6 +2431,8 @@ CUBE_OPS = 120
 # the kernels of a miss hook call, and of a K1-env segment with its hook
 ENV_MISS_KERNELS = {"miss_compact_kernel": None, "miss_radiance_kernel": None}
 ENV_KERNELS = {"seg_segment_kernel<miss>": None, **ENV_MISS_KERNELS}
+# a cubemap's radiance pass also counts under its mode
+CUBE_KERNEL = "miss_radiance_kernel<cubemap>"
 
 
 @contextlib.contextmanager
@@ -2477,21 +2483,23 @@ def capture_env(k1_launches, miss_calls):
 
 def miss_bound(call, misses):
     """(bound ms, what bounds it) of one radiance pass: the list entry, the
-    origin, direction, throughput and radiance of each missed ray read
-    once, its radiance (and light) written once, a cubemap fetch's four
-    texels; the sky's operations or the fetch's. (The compaction pass's
+    direction, throughput and radiance of each missed ray read once (and
+    the sky's origin), its radiance (and light) written once; the sky's
+    operations or the fetch's. A cubemap fetch's four texels (64 bytes a
+    ray) are its traffic and not its bound: rays may share texels, so a
+    pass that orders its gathers could read fewer (as
+    ``rtbench/core/cube_bounds.py`` counts it). (The compaction pass's
     bound counts the miss plane in and the list out.)"""
     from raytracerfacility_tpu_torch.enums import EnvironmentalLightingType
 
     sky = (EnvironmentalLightingType(call["lighting"])
            == EnvironmentalLightingType.SKYDOME)
-    nbytes = 4 * misses * (1 + 12 + 3 + (3 if call["out"] else 0))
+    nbytes = 4 * misses * (1 + (12 if sky else 9) + 3 + (3 if call["out"] else 0))
     if sky:
         per_ray, per_view, per_light = SKY_OPS
         ops = misses * (per_ray + call["samples"] * (
             per_view + call["samples_light"] * per_light))
     else:
-        nbytes += 64 * misses
         ops = misses * CUBE_OPS
     t_bytes, t_ops = nbytes / PEAK_BYTES, ops / PEAK_FLOPS
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
@@ -2597,6 +2605,7 @@ def env_frame_phase(device, totals, what, compiled, bvh_compiled, cam_s, props,
     config = RenderConfig(width=WIDTH, height=HEIGHT, bounces=BOUNCES,
                           lighting_type=lighting)
     env_s = props.state(device)
+    cube = {CUBE_KERNEL: None} if props.cubemap is not None else {}
 
     def render(scene=compiled):
         return render_frames_counted(scene, cam_s, env_s, config,
@@ -2605,9 +2614,11 @@ def env_frame_phase(device, totals, what, compiled, bvh_compiled, cam_s, props,
     k1_launches, miss_calls = [], []
     with capture_env(k1_launches, miss_calls):
         (frame, rays), launches = counted(
-            render, dict(ENV_KERNELS), totals)
+            render, {**ENV_KERNELS, **cube}, totals)
+    # under the sky ``counted`` holds the cubemap's count to 0
     if not (launches["seg_segment_kernel<miss>"] == launches["miss_compact_kernel"]
-            == launches["miss_radiance_kernel"]):
+            == launches["miss_radiance_kernel"]
+            and (not cube or launches[CUBE_KERNEL] == launches["miss_radiance_kernel"])):
         raise AssertionError(f"{what}: not one compaction and one radiance pass a K1-env launch: {launches}")
     per_seg = [int((c["miss"] > 0).sum()) for c in miss_calls]
     print(f"  {what}: {WIDTH}x{HEIGHT} {BOUNCES} bounces {ENV_FRAMES} frames: "
@@ -2627,7 +2638,7 @@ def env_frame_phase(device, totals, what, compiled, bvh_compiled, cam_s, props,
         miss_err = max(miss_err, check_miss(call, f"{what} launch {i}")[1])
     (wave, wave_rays), launches = counted(
         lambda: render(bvh_compiled),
-        {"bvh_trace_kernel<false>": None, **ENV_MISS_KERNELS}, totals)
+        {"bvh_trace_kernel<false>": None, **ENV_MISS_KERNELS, **cube}, totals)
     print(f"  {what} on the wavefront engine (LBVH): {int(wave_rays)} live rays, "
           f"launches {launches}")
     _check_color(frame.color, wave.color, f"{what} K1-env engine vs wavefront colour")
@@ -2752,6 +2763,54 @@ def primary_miss_phase(device, totals, sky, sky_type):
     return k1_err, miss_err, seg0
 
 
+def cubemap_phase(device, totals, compiled, bvh_compiled, cam_s):
+    """Phase 22: the 1080p path under a seeded cubemap of the cubemap
+    cell's face (``ENV_CUBE``), as :func:`env_frame_phase` checks it (every
+    miss-kernel launch against its plain version on every missed lane),
+    each segment also counted under ``miss_radiance_kernel<cubemap>``; the
+    radiance pass timed on the launch with the most missed rays. Returns
+    (K1-env max |d|, miss-kernel max |d|, the timed launch's numbers)."""
+    import numpy as np
+
+    from raytracerfacility_tpu_torch.enums import EnvironmentalLightingType
+    from raytracerfacility_tpu_torch.models.renderer import EnvironmentProperties
+
+    print(f"phase 22: a seeded {ENV_CUBE}x{ENV_CUBE}-a-face cubemap at 1080p")
+    cube = EnvironmentProperties(skylight_intensity=0.9, cubemap=np.random.default_rng(
+        ENV_CUBE_SEED).uniform(0.0, 1.5, (6, ENV_CUBE, ENV_CUBE, 4)).astype(np.float32))
+    calls, k1_err, miss_err = env_frame_phase(
+        device, totals, "cubemap", compiled, bvh_compiled, cam_s, cube,
+        EnvironmentalLightingType.SCENE)
+    top = max(range(len(calls)), key=lambda i: int((calls[i]["miss"] > 0).sum()))
+    m, _, plain_ms, ms, bnd, by, more = check_miss(
+        calls[top], f"cubemap launch {top} (timed)", timed=True)
+    texels = 64 * m
+    print(f"  the gathers' traffic: {texels} bytes of texels ({m} missed rays, four "
+          f"float32 RGBA texels each), {texels / PEAK_BYTES * 1e3:.4f} ms at the "
+          f"peak; the faces {cube.cubemap.nbytes} bytes")
+    return k1_err, miss_err, dict(
+        launch=top, lanes=calls[top]["miss"].shape[0], missed=m, ms=ms,
+        plain_ms=plain_ms, bound_ms=bnd, bound_by=by, texel_bytes=texels,
+        face=ENV_CUBE, faces_bytes=cube.cubemap.nbytes, **more)
+
+
+def cube_row(cube, err, ptxas, totals):
+    """The kernels line's row of ``miss_radiance_kernel`` in its cubemap
+    mode, at phase 22's launch with the most missed rays."""
+    return {"name": CUBE_KERNEL, "route": "cuda",
+            "source": "raytracerfacility_tpu_torch/csrc/env.cu",
+            "replaces": ("none: XLA glue raytracerfacility_tpu/ops/texture.py:94 "
+                         "sample_cubemap (pallas_seg.py:1035-1060)"),
+            "launches": totals.get(CUBE_KERNEL, 0), "max_abs_err": err,
+            **{k: cube[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+            "library_ms": None,
+            "shape": (f"1080p cubemap, {cube['face']} a face ({cube['faces_bytes']} "
+                      f"bytes), the launch with the most missed rays "
+                      f"({cube['missed']} of {cube['lanes']} lanes)"),
+            "texel_bytes": cube["texel_bytes"], "compact": cube["compact"],
+            "ptxas": ptxas.get("miss_radiance_kernel<1>")}
+
+
 def environment_phase(device, totals, compiled, cam_s, c7, c7_cam_s):
     """Phases 21-25: the sky and the cubemap at 1080p (K1-env and the miss
     kernel; K1-env's time and bound on the sky's first launch), config 4
@@ -2759,7 +2818,6 @@ def environment_phase(device, totals, compiled, cam_s, c7, c7_cam_s):
     7's strands under the sky (K3 and the miss kernel), config 6 under the
     sky (K1-env's segment 0 with primary misses). Returns the K1-env and
     miss-kernel rows' numbers."""
-    import numpy as np
     import torch
 
     from raytracerfacility_tpu_torch.enums import EnvironmentalLightingType
@@ -2781,8 +2839,6 @@ def environment_phase(device, totals, compiled, cam_s, c7, c7_cam_s):
     sky_type = EnvironmentalLightingType.SKYDOME
     sky = EnvironmentProperties(lighting_type=sky_type, sun_direction=ENV_SUN,
                                 skylight_intensity=1.0)
-    cube = EnvironmentProperties(skylight_intensity=0.9, cubemap=np.random.default_rng(
-        ENV_CUBE_SEED).uniform(0.0, 1.5, (6, ENV_CUBE, ENV_CUBE, 4)).astype(np.float32))
     bvh_compiled = bench_scene(WIDTH, HEIGHT)[0].build(device, build_bvh=True)
     out = {"miss": {}}
 
@@ -2823,18 +2879,10 @@ def environment_phase(device, totals, compiled, cam_s, c7, c7_cam_s):
                                     bound_by=by, **more)
     del sky_calls
 
-    print("phase 22: a seeded 512x512-a-face cubemap at 1080p")
-    cube_calls, err, merr = env_frame_phase(
-        device, totals, "cubemap", compiled, bvh_compiled, cam_s, cube,
-        EnvironmentalLightingType.SCENE)
-    k1_err, miss_err = max(k1_err, err), max(miss_err, merr)
-    top = max(range(len(cube_calls)), key=lambda i: int((cube_calls[i]["miss"] > 0).sum()))
-    m, _, plain_ms, ms, bnd, by, more = check_miss(
-        cube_calls[top], f"cubemap launch {top} (timed)", timed=True)
-    out["miss"]["1080p cubemap"] = dict(launch=top, lanes=cube_calls[top]["miss"].shape[0],
-                                        missed=m, ms=ms, plain_ms=plain_ms,
-                                        bound_ms=bnd, bound_by=by, **more)
-    del cube_calls, bvh_compiled
+    err, merr, out["miss"]["1080p cubemap"] = cubemap_phase(
+        device, totals, compiled, bvh_compiled, cam_s)
+    k1_err, miss_err, out["cube_err"] = max(k1_err, err), max(miss_err, merr), merr
+    del bvh_compiled
 
     print("phase 23: config 4 under the sky (presorted segmented engine, the "
           "miss hook) against the LBVH walker")
@@ -3626,7 +3674,7 @@ def main(argv=None) -> int:
     import torch
 
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--only", choices=["tea", "reorder"],
+    parser.add_argument("--only", choices=["tea", "reorder", "cubemap"],
                         help="run phases 0 and 1 and this kernel's phase alone")
     args = parser.parse_args(argv)
 
@@ -3667,6 +3715,12 @@ def main(argv=None) -> int:
         if args.only == "tea":
             print("phase 27: tea_init_kernel vs plain at the main path's pools")
             rows = [tea_row(tea_phase(device), ptxas)]
+        elif args.only == "cubemap":
+            scene, cam, _ = bench_scene(WIDTH, HEIGHT)
+            _, err, cube = cubemap_phase(device, totals, scene.build(device),
+                                         scene.build(device, build_bvh=True),
+                                         cam.state(device))
+            rows = [cube_row(cube, err, ptxas, totals)]
         else:
             rows = reorder_rows(reorder_phase(device, totals), ptxas, totals)
         print(json.dumps({"kernels": rows}))
@@ -4057,6 +4111,7 @@ def main(argv=None) -> int:
                     f"{envr['miss']['1080p sky']['lanes']} lanes)"),
              shapes=envr["miss"],
              ptxas=[ptxas.get(f"miss_radiance_kernel<{m}>") for m in (1, 2)]),
+        cube_row(envr["miss"]["1080p cubemap"], envr["cube_err"], ptxas, totals),
         dict(row("miss_compact_kernel", "env.cu",
                  "none: the miss kernel's list of missed lanes (the reference "
                  "selects the misses in XLA, pallas_seg.py:1035-1060)", 0,

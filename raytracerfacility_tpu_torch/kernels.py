@@ -16,10 +16,12 @@ grazing accepts); no ``--use_fast_math``, so division and ``sqrtf`` stay
 IEEE and the double ``sin``/``cos`` stay the accurate library versions.
 
 ``LAUNCHES`` counts kernel launches by kernel name; each wrapper adds one
-where it launches its kernel. ``MISSED_RAYS`` holds, for each device, the
-running count of the rays the miss hook found missed
-(``ops/environment.py::missed_rays``): a tensor on that device, so the
-count costs the timed path no host read. ``reset_launches`` clears both.
+where it launches its kernel (``miss_radiance_kernel`` counts both of its
+modes, ``miss_radiance_kernel<cubemap>`` the cubemap's alone).
+``MISSED_RAYS`` holds, for each device, the running count of the rays the
+miss hook found missed (``ops/environment.py::missed_rays``): a tensor on
+that device, so the count costs the timed path no host read.
+``reset_launches`` clears both.
 """
 
 from __future__ import annotations
@@ -49,7 +51,8 @@ LAUNCHES = {"seg_segment_kernel": 0, "seg_segment_kernel<miss>": 0,
             "brute_trace_kernel<true>": 0, "inst_trace_kernel": 0,
             "bvh_trace_kernel<false>": 0, "bvh_trace_kernel<true>": 0,
             "block_perm_kernel": 0, "miss_compact_kernel": 0,
-            "miss_radiance_kernel": 0, "btf_decode_kernel": 0,
+            "miss_radiance_kernel": 0, "miss_radiance_kernel<cubemap>": 0,
+            "btf_decode_kernel": 0,
             "tea_init_kernel": 0, "reorder_key_kernel": 0,
             "reorder_gather_kernel": 0}
 

@@ -532,7 +532,8 @@ def _launch_radiance(state, radiance, missed, count, n, params, cubemap, mode,
                      samples, samples_light, out):
     """``miss_radiance_kernel`` over the lanes :func:`compact_misses`
     listed (``count`` of at most ``n``), on inputs :func:`miss_radiance`
-    checked."""
+    checked; a cubemap launch also counts under
+    ``miss_radiance_kernel<cubemap>``."""
     h, w = (cubemap.shape[1], cubemap.shape[2]) if cubemap is not None else (0, 0)
     err = kernels.library("env").rtf_miss_radiance(
         state.data_ptr(), radiance.data_ptr(), missed.data_ptr(), count.data_ptr(),
@@ -542,4 +543,6 @@ def _launch_radiance(state, radiance, missed, count, n, params, cubemap, mode,
         out.stride(0) if out is not None else 0, mode, samples, samples_light,
         h, w, ctypes.c_void_p(torch.cuda.current_stream(state.device).cuda_stream))
     kernels.LAUNCHES["miss_radiance_kernel"] += 1
+    if mode == MODE_CUBEMAP:
+        kernels.LAUNCHES["miss_radiance_kernel<cubemap>"] += 1
     kernels.check(err, "miss_radiance_kernel")
