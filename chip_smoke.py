@@ -2,8 +2,8 @@
 """Drive the PyTorch port's camera paths on one NVIDIA GPU.
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``
-(``--only tea``, ``reorder`` or ``cubemap``: the build and that kernel's
-phase alone).
+(``--only tea``, ``probe``, ``reorder`` or ``cubemap``: the build and that
+kernel's phase alone).
 It builds the CUDA kernels from ``raytracerfacility_tpu_torch/csrc``,
 holds each kernel against its plain PyTorch version on the card (at small
 sizes, then at the shapes its path gives it), and drives each path through
@@ -74,6 +74,11 @@ its kernels:
   pools at 8 and 1 samples, bit for bit against its plain version, with
   its time, its bound and the plain version's time; every counted path
   also counts its seeding launches (``counted(..., seeds=)``).
+- the estimator's probe-ray kernel (``probe_ray_kernel``,
+  ``csrc/probe.cu``) behind ``ops/probe.py::probe_rays`` on config 4's
+  probes at 1 and 8 samples, bit for bit against its plain version, with
+  its time, its bound and the plain version's call and device time; every
+  counted estimate launches it once and ``tea_init_kernel`` never.
 - the exact reorder's kernels (``reorder_key_kernel``,
   ``reorder_gather_kernel``, ``csrc/perm.cu``) on every reorder of a
   1080p call and a config-4 estimate against their plain versions, the
@@ -1896,13 +1901,13 @@ def illumination_phase(device, totals, render_1080p, frame_1080p, rays_1080p):
             blocks = 0 if rows == "0" else sum(
                 1 for s in range(1, config.bounces + 1)
                 if not (exact != "0" and (s - 1) % int(exact) == int(exact) - 1))
-            expect = {"seg_segment_kernel": config.bounces + 1}
+            expect = {"seg_segment_kernel": config.bounces + 1, PROBE_KERNEL: 1}
             if blocks:
                 expect["block_perm_kernel"] = blocks
             (out, rays), launches = counted(
                 lambda: estimate_illumination_counted(compiled, env_s, config, probes,
                                                       seed=C4_SEED), expect, totals,
-                seeds=1, reorders=1 + config.bounces - blocks)
+                seeds=0, reorders=1 + config.bounces - blocks)
             if rows != "0" and exact == "0":
                 k6_launches = capture_k6(sample)
             med, walls, _ = median_calls(lambda: sample().energy.shape[0])
@@ -1941,7 +1946,7 @@ def illumination_phase(device, totals, render_1080p, frame_1080p, rays_1080p):
     (w_out, w_rays), launches = counted(
         lambda: estimate_illumination_counted(walker, env_s, config, probes,
                                               seed=C4_SEED),
-        {"bvh_trace_kernel<false>": None}, totals, seeds=1)
+        {"bvh_trace_kernel<false>": None, PROBE_KERNEL: 1}, totals, seeds=0)
     est_w = TriangleIlluminationEstimator(total_area=est.total_area)
 
     def sample_w():
@@ -2896,7 +2901,7 @@ def environment_phase(device, totals, compiled, cam_s, c7, c7_cam_s):
     with capture_env([], c4_calls):
         (res, rays), launches = counted(
             lambda: estimate_illumination_counted(c4, env_s, cfg, probes, seed=C4_SEED),
-            dict(ENV_KERNELS), totals)
+            {**ENV_KERNELS, PROBE_KERNEL: 1}, totals, seeds=0)
     print(f"  {probes.num_probes} probes, {2 * probes.num_probes} probe rays: "
           f"{int(rays)} live rays, launches {launches}; missed rays a segment "
           f"{[int((c['miss'] > 0).sum()) for c in c4_calls]}")
@@ -2916,7 +2921,8 @@ def environment_phase(device, totals, compiled, cam_s, c7, c7_cam_s):
     c4b = scene.build(device, build_bvh=True)
     (res_b, rays_b), launches = counted(
         lambda: estimate_illumination_counted(c4b, env_s, cfg, probes, seed=C4_SEED),
-        {"bvh_trace_kernel<false>": None, **ENV_MISS_KERNELS}, totals)
+        {"bvh_trace_kernel<false>": None, **ENV_MISS_KERNELS, PROBE_KERNEL: 1}, totals,
+        seeds=0)
     d = (res.energy.double() - res_b.energy.double()).abs()
     dd = (res.direction.double() - res_b.direction.double()).abs()
     print(f"  on the walker: {int(rays_b)} live rays, launches {launches}; energy "
@@ -3287,6 +3293,98 @@ def tea_phase(device):
     return out
 
 
+# The estimator's probe-ray kernel (phase 29, beside phase 27; ``python3
+# chip_smoke.py --only probe`` runs phases 0, 1 and 29 alone): ``ops/probe.py::
+# probe_rays`` on config 4's probes at 1 and 8 samples against its plain
+# version bit for bit
+PROBE_KERNEL = "probe_ray_kernel"
+# bytes of the kernel: a probe's six float3 read once, a ray's origin,
+# direction and normal (float32) and its int64 RNG state written once
+PROBE_READ_BYTES = 6 * 3 * 4
+RAY_WRITE_BYTES = 3 * 3 * 4 + 8
+PROBE_OFFSET = 3 * TEA_PROBES + 17
+
+
+def probe_phase(device):
+    """Phase 29: ``probe_ray_kernel`` on config 4's probes at 1 and 8
+    samples, a non-zero probe offset and the estimator's push: bit for bit
+    against ``ops/probe.py::_probe_rays_plain`` on the card (origin,
+    direction, normal, RNG), one launch a call and no ``tea_init_kernel``;
+    its device time (ten launches queued behind a device sleep, the median
+    of five such timings) and a wrapper call's (CUDA events around one
+    call); its bound (PROBE_READ_BYTES a probe and RAY_WRITE_BYTES a ray at
+    PEAK_BYTES, against the TEA's TEA_OPS instructions a ray at PEAK_INT32);
+    the plain version's call (CUDA events around one call, its seed copy
+    and some 164 dispatches) and its device busy time (one profiled call).
+    Returns {pool: numbers}."""
+    import torch
+
+    from raytracerfacility_tpu_torch import kernels
+    from raytracerfacility_tpu_torch.models.illumination import (
+        TriangleIlluminationEstimator,
+    )
+    from raytracerfacility_tpu_torch.ops import probe
+    from raytracerfacility_tpu_torch.scenes import canopy_illumination
+
+    _, items, _, _ = canopy_illumination()
+    probes = TriangleIlluminationEstimator().prepare_light_probe_group(items, device)
+    p = probes.num_probes
+    out = {}
+    for samples in (1, 8):
+        what = f"config 4 probe pool, {samples} spp"
+
+        def kernel(s=samples):
+            return probe.probe_rays(probes, s, TEA_SEED, 0.001, PROBE_OFFSET)
+
+        def plain(s=samples):
+            return probe._probe_rays_plain(probes, s, TEA_SEED, 0.001, PROBE_OFFSET)
+
+        kernels.reset_launches()
+        got = kernel()
+        if kernels.LAUNCHES[PROBE_KERNEL] != 1 or kernels.LAUNCHES[SEED_KERNEL]:
+            raise AssertionError(f"{what}: launches {kernels.LAUNCHES}")
+        for name, g, w in zip(("origin", "direction", "normal", "rng"), got, plain()):
+            if g.dtype == torch.float32:
+                g, w = g.view(torch.int32), w.view(torch.int32)
+            if g.shape != w.shape or not torch.equal(g, w):
+                raise AssertionError(f"{what}: the kernel's {name} differs from the "
+                                     f"plain version on {int((g != w).sum())} words")
+        n = p * 2 * samples
+        nbytes = PROBE_READ_BYTES * p + RAY_WRITE_BYTES * n
+        t_bytes, t_ops = nbytes / PEAK_BYTES, n * TEA_OPS / PEAK_INT32
+        runs = [_device_ms(kernel) for _ in range(5)]
+        call_ms, _ = _median_ms(kernel)
+        plain_call_ms, _ = _median_ms(plain)
+        _, plain_busy_ms, events, _ = profile_call(plain)
+        out[what] = {
+            "probes": p, "rays": n, "ms": sorted(runs)[2], "ms_runs": runs,
+            "call_ms": call_ms, "bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations", "bytes": nbytes,
+            "plain_ms": plain_busy_ms, "plain_call_ms": plain_call_ms,
+            "plain_device_events": len(events)}
+        r = out[what]
+        print(f"  {what}: {p} probes, {n} rays, equal bit for bit; kernel "
+              f"{r['ms']:.4f} ms (runs {', '.join(f'{t:.4f}' for t in runs)}), a "
+              f"wrapper call {call_ms:.4f} ms; bound {r['bound_ms']:.4f} ms by "
+              f"{r['bound_by']} ({nbytes} bytes, {n * TEA_OPS} INT32 instructions); "
+              f"plain: a call {plain_call_ms:.4f} ms, device busy {plain_busy_ms:.4f} "
+              f"ms in {len(events)} device events")
+    return out
+
+
+def probe_row(probes, ptxas, launches=None):
+    """The kernels line's row of ``probe_ray_kernel``, at the 1 spp pool."""
+    pool = probes["config 4 probe pool, 1 spp"]
+    return {"name": PROBE_KERNEL, "route": "cuda",
+            "source": "raytracerfacility_tpu_torch/csrc/probe.cu",
+            "replaces": "none: XLA glue raytracerfacility_tpu/models/illumination.py:"
+                        "120-147 (the probe rays of estimate_illumination)",
+            "launches": launches, "max_abs_err": 0,
+            **{k: pool[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+            "library_ms": None, "shape": "config 4 probe pool, 1 spp",
+            "shapes": probes, "ptxas": ptxas.get(PROBE_KERNEL)}
+
+
 REORDER_KERNELS = ("reorder_key_kernel", "reorder_gather_kernel")
 # bytes a ray of the exact reorder's kernels, each read once and written
 # once: the key reads seven state planes and writes the key; the gather
@@ -3531,8 +3629,8 @@ def reorder_phase(device, totals, render_1080p=None):
 
     runs = {"1080p": (render_1080p, {"seg_segment_kernel": (BOUNCES + 1) * FRAMES},
                       FRAMES, BOUNCES * FRAMES),
-            "config 4": (estimate, {"seg_segment_kernel": c4_config.bounces + 1}, 1,
-                         c4_config.bounces + 1)}
+            "config 4": (estimate, {"seg_segment_kernel": c4_config.bounces + 1,
+                                    PROBE_KERNEL: 1}, 0, c4_config.bounces + 1)}
     for what, (render, expect, seeds, reorders) in runs.items():
         ((result, rays), seen), launches = counted(
             lambda: checked_reorders(render), expect, totals, seeds=seeds,
@@ -3674,7 +3772,7 @@ def main(argv=None) -> int:
     import torch
 
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--only", choices=["tea", "reorder", "cubemap"],
+    parser.add_argument("--only", choices=["tea", "probe", "reorder", "cubemap"],
                         help="run phases 0 and 1 and this kernel's phase alone")
     args = parser.parse_args(argv)
 
@@ -3715,6 +3813,9 @@ def main(argv=None) -> int:
         if args.only == "tea":
             print("phase 27: tea_init_kernel vs plain at the main path's pools")
             rows = [tea_row(tea_phase(device), ptxas)]
+        elif args.only == "probe":
+            print("phase 29: probe_ray_kernel vs plain at config 4's probe pools")
+            rows = [probe_row(probe_phase(device), ptxas)]
         elif args.only == "cubemap":
             scene, cam, _ = bench_scene(WIDTH, HEIGHT)
             _, err, cube = cubemap_phase(device, totals, scene.build(device),
@@ -4074,6 +4175,9 @@ def main(argv=None) -> int:
     tea = tea_phase(device)
     # phase 28: the exact reorder's key and gather kernels
     reorder = reorder_phase(device, totals, render_1080p)
+    # phase 29: the estimator's probe-ray kernel
+    print("phase 29: probe_ray_kernel vs plain at config 4's probe pools")
+    probes_k = probe_phase(device)
 
     def row(name, source, replaces, err, ms, plain_ms, bnd, by):
         return {"name": name, "route": "cuda",
@@ -4187,6 +4291,7 @@ def main(argv=None) -> int:
                    "index_select of each plane set on its block view",
              at_1080p=k6["1080p"]),
         dict(tea_row(tea, ptxas), launches=totals.get(SEED_KERNEL, 0)),
+        probe_row(probes_k, ptxas, totals.get(PROBE_KERNEL, 0)),
         *reorder_rows(reorder, ptxas, totals),
     ]}))
     print(json.dumps({"ok": True, "device": {

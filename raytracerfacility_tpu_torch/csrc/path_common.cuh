@@ -193,18 +193,12 @@ __device__ __forceinline__ void no_hit_aov(Aov& a, float ar, float ag,
   a.px = a.py = a.pz = kNoHit;
 }
 
-// Direction in the cone of concentration alpha around axis a: two LCG
-// draws, cos(theta) then phi, and the tangent frame of
-// RayTracerUtilities.cuh:110-133 (ops/math3d.py::sample_hemisphere).
-// Returns the advanced RNG state.
-__device__ __forceinline__ uint32_t cone_sample(uint32_t rng, float ax, float ay,
-                                                float az, float alpha, float& dx,
-                                                float& dy, float& dz) {
-  float u_cos, u_phi;
-  rng = lcg(rng, u_cos);
-  rng = lcg(rng, u_phi);
-  const float one_minus = 1.0f - alpha;
-  const float cos_t = 1.0f - u_cos * one_minus * one_minus;
+// The direction at cos(theta) = cos_t and phi = 2 pi u_phi around axis a,
+// in the tangent frame of RayTracerUtilities.cuh:110-133
+// (ops/math3d.py::sample_hemisphere after its two draws).
+__device__ __forceinline__ void frame_direction(float ax, float ay, float az,
+                                                float cos_t, float u_phi,
+                                                float& dx, float& dy, float& dz) {
   const float sin_t = sqrtf(fmaxf(0.0f, 1.0f - cos_t * cos_t));
   // cos and sin in double, rounded: the same float on every device
   // (ops/math3d.py::cos_sin)
@@ -232,6 +226,20 @@ __device__ __forceinline__ uint32_t cone_sample(uint32_t rng, float ax, float ay
   dx = tx * lx + bx * ly + ax * lz;
   dy = ty * lx + by * ly + ay * lz;
   dz = tz * lx + bz * ly + az * lz;
+}
+
+// Direction in the cone of concentration alpha around axis a: two LCG
+// draws, cos(theta) then phi (ops/math3d.py::sample_hemisphere with
+// alpha). Returns the advanced RNG state.
+__device__ __forceinline__ uint32_t cone_sample(uint32_t rng, float ax, float ay,
+                                                float az, float alpha, float& dx,
+                                                float& dy, float& dz) {
+  float u_cos, u_phi;
+  rng = lcg(rng, u_cos);
+  rng = lcg(rng, u_phi);
+  const float one_minus = 1.0f - alpha;
+  frame_direction(ax, ay, az, 1.0f - u_cos * one_minus * one_minus, u_phi, dx,
+                  dy, dz);
   return rng;
 }
 

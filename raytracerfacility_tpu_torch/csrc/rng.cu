@@ -10,25 +10,22 @@
 // pool (two masks, then 16 rounds of 24 operations, each add and shift
 // followed by a mask); here it is one.
 //
-// Bound on this card by its integer instructions and its bytes alike: 16
-// rounds x 2 halves of 8 operations (2 shifts, 4 adds, 2 xors), which the
-// ISA encodes as 5 (a shift-left-add, LEA; a shift-right-add, LEA.HI; the
-// add of the round's sum; a three-way xor, LOP3; the accumulating add),
-// 160 a word, at 128 an SM a clock (the ALU pipe's shifts and logic beside
-// the adds nvcc moves to the FMA pipe), take as long as its 16 bytes a word
-// (the int64 word read, the int64 state written) at 3.35 TB/s. One thread
-// a word keeps both halves in registers as uint32, whose wrap is the plain
-// version's `& 0xFFFFFFFF`; the 16 rounds are unrolled with their running
-// sums folded to constants, so each thread runs the hash's instructions,
-// one load and one store, and no mask. A full card of threads (2,048 an
-// SM) hides the latency of each thread's chain of dependent instructions.
+// Bound on this card by its integer instructions and its bytes alike: the
+// hash's 160 instructions a word (tea.cuh) at 128 an SM a clock (the ALU
+// pipe's shifts and logic beside the adds nvcc moves to the FMA pipe) take
+// as long as its 16 bytes a word (the int64 word read, the int64 state
+// written) at 3.35 TB/s. One thread a word runs tea.cuh's unrolled rounds
+// in registers, one load and one store, and no mask. A full card of
+// threads (2,048 an SM) hides the latency of each thread's chain of
+// dependent instructions.
 
 #include <cuda_runtime.h>
+
+#include "tea.cuh"
 
 namespace rtf {
 
 constexpr int kTeaThreads = 256;
-constexpr int kTeaRounds = 16;
 
 // val0: (n,) int64, word i's first value in its low 32 bits; val1: (n /
 // run,) int64, word k seeding words [k * run, (k + 1) * run) (run = 1: one
@@ -40,16 +37,9 @@ tea_init_kernel(const long long* __restrict__ val0,
                 long long* __restrict__ out, int n, int run) {
   const unsigned i = blockIdx.x * kTeaThreads + threadIdx.x;
   if (i >= (unsigned)n) return;
-  unsigned v0 = (unsigned)__ldg(val0 + i);
-  unsigned v1 = (unsigned)__ldg(val1 + (run == 1 ? i : i / (unsigned)run));
-  unsigned s0 = 0;
-#pragma unroll
-  for (int r = 0; r < kTeaRounds; ++r) {
-    s0 += 0x9E3779B9u;
-    v0 += ((v1 << 4) + 0xA341316Cu) ^ (v1 + s0) ^ ((v1 >> 5) + 0xC8013EA4u);
-    v1 += ((v0 << 4) + 0xAD90777Du) ^ (v0 + s0) ^ ((v0 >> 5) + 0x7E95761Eu);
-  }
-  out[i] = (long long)v0;
+  const unsigned v0 = (unsigned)__ldg(val0 + i);
+  const unsigned v1 = (unsigned)__ldg(val1 + (run == 1 ? i : i / (unsigned)run));
+  out[i] = (long long)tea_hash(v0, v1);
 }
 
 }  // namespace rtf

@@ -38,7 +38,7 @@ _CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 # library name -> source file
 SOURCES = {"path": "path.cu", "brute": "brute.cu", "inst": "inst.cu",
            "bvh": "bvh.cu", "perm": "perm.cu", "env": "env.cu", "btf": "btf.cu",
-           "rng": "rng.cu"}
+           "rng": "rng.cu", "probe": "probe.cu"}
 BUILD_DIR = pathlib.Path(__file__).resolve().parent.parent / "build" / "rtf_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -54,7 +54,7 @@ LAUNCHES = {"seg_segment_kernel": 0, "seg_segment_kernel<miss>": 0,
             "miss_radiance_kernel": 0, "miss_radiance_kernel<cubemap>": 0,
             "btf_decode_kernel": 0,
             "tea_init_kernel": 0, "reorder_key_kernel": 0,
-            "reorder_gather_kernel": 0}
+            "reorder_gather_kernel": 0, "probe_ray_kernel": 0}
 
 # device -> (2,) int64 tensor on it: the missed rays whose light the hook
 # did not and did write out (ops/environment.py::missed_rays)
@@ -139,6 +139,7 @@ _ARGTYPES = {
     "env": {"rtf_miss_compact": (4, 1), "rtf_miss_radiance": (7, 9)},
     "btf": {"rtf_btf_decode": (13, 2)},
     "rng": {"rtf_tea_init": (3, 2)},
+    "probe": {"rtf_probe_rays": (10, 5)},
 }
 
 

@@ -15,8 +15,10 @@ Port of ``raytracerfacility_tpu/models/illumination.py``: ``LightProbes``,
   TriangleIlluminationEstimator.cpp:8-48, 84-92).
 
 The (probe, face, sample) triple is one flat ray pool with a TEA-hashed RNG
-stream per ray, as in the reference. ``models/pathtracer.py::trace_pool``
-traces it as a probe pool, on the engine the reference picks (ref
+stream per ray, as in the reference, made by ``ops/probe.py::probe_rays``
+(on the card one ``probe_ray_kernel`` launch).
+``models/pathtracer.py::trace_pool`` traces it as a probe pool, on the
+engine the reference picks (ref
 illumination.py:150-205): with packed path tables the segmented engine
 with one exact reorder before segment 0 (``ops/seg.py``, K1) when the
 scene has 8 chunks or more, or whatever its size under a cubemap or the
@@ -39,12 +41,11 @@ import torch
 from raytracerfacility_tpu_torch import tracing
 from raytracerfacility_tpu_torch.models.pathtracer import RenderConfig, trace_pool
 from raytracerfacility_tpu_torch.ops.environment import EnvironmentState
-from raytracerfacility_tpu_torch.ops.math3d import dot, sample_hemisphere
-from raytracerfacility_tpu_torch.ops.rng import lcg_init, lcg_next
+from raytracerfacility_tpu_torch.ops.math3d import dot
+from raytracerfacility_tpu_torch.ops.probe import probe_rays
 from raytracerfacility_tpu_torch.scene.compiled import CompiledScene
 from raytracerfacility_tpu_torch.utils.validation import check_finite
 
-_MASK32 = 0xFFFFFFFF
 # primary tmin of probe rays (ref illumination.py:162, the XLA engine's)
 _PROBE_TMIN = 1e-3
 
@@ -137,37 +138,10 @@ def estimate_illumination_counted(
 ):
     """:func:`estimate_illumination` that also returns the live rays traced
     over all segments (an int64 scalar tensor on the scene's device)."""
-    device = scene.device
     p, s = probes.num_probes, config.samples
     with tracing.span("estimator.prep"):
-        # ray pool: (P, 2 faces, S samples)
-        probe_idx = (torch.arange(p, dtype=torch.int64, device=device)[:, None, None]
-                     + probe_offset)
-        face_idx = torch.arange(2, dtype=torch.int64, device=device)[None, :, None]
-        sample_idx = torch.arange(s, dtype=torch.int64, device=device)[None, None, :]
-        ray_id = (probe_idx * (2 * s) + face_idx * s + sample_idx) & _MASK32
-        # a host-to-device copy from pageable memory: it waits for the queue
-        with tracing.span("estimator.sync.seed"):
-            seed_word = torch.tensor(seed & _MASK32, device=device)
-        rng = lcg_init(ray_id, seed_word)
-
-        # uniform barycentric coords, not folded into the triangle, exactly
-        # like the reference (IlluminationEstimation.cu:56-60 draws two raw
-        # uniforms)
-        rng, ca = lcg_next(rng)
-        rng, cb = lcg_next(rng)
-        w = (1.0 - ca - cb)[..., None]
-        ca, cb = ca[..., None], cb[..., None]
-
-        def blend(a, b, c):
-            return w * a[:, None, None] + ca * b[:, None, None] + cb * c[:, None, None]
-
-        position = blend(probes.a_position, probes.b_position, probes.c_position)
-        normal = blend(probes.a_normal, probes.b_normal, probes.c_normal)
-        # face 0 = front (+normal), face 1 = back (-normal)
-        normal = normal * torch.where(face_idx == 0, 1.0, -1.0)[..., None]
-        rng, ray_dir = sample_hemisphere(rng, normal)  # uniform variant
-        origin = position + normal * push_normal_distance
+        origin, ray_dir, normal, rng = probe_rays(probes, s, seed, push_normal_distance,
+                                                  probe_offset)
 
     n_rays = p * 2 * s
     radiance, _, _, _, rays = trace_pool(

@@ -27,9 +27,9 @@ hook) ``env.params``, ``env.compact``, ``env.radiance``;
 ``estimator.call`` (root), ``estimator.prep``,
 ``estimator.reduce``; and the host syncs ``seg.sync.valid_count``,
 ``seg.sync.live_count``, ``seg.sync.ray_total``,
-``wavefront.sync.ray_total``, ``estimator.sync.seed``,
-``estimator.sync.tmin``, ``estimator.sync.flux`` and
-``validate.sync.finite``.
+``wavefront.sync.ray_total``, ``estimator.sync.seed`` (only the plain
+probe rays on the card copy the seed), ``estimator.sync.tmin``,
+``estimator.sync.flux`` and ``validate.sync.finite``.
 """
 
 from __future__ import annotations

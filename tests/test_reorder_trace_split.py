@@ -66,3 +66,29 @@ def test_a_presort_starts_after_the_valid_count_read():
     want |= set(range(names.index(K1) + 1, len(names) - 1))
     assert tr.reorder_events(t) == want
     assert tr.glue_us(t) == pytest.approx(2 * first)
+
+
+PROBE = ("rtf::probe_ray_kernel(float const*, float const*, float const*, float const*, "
+         "float const*, float const*, float*, float*, float*, long long*, int, int, "
+         "unsigned int, unsigned int, float)")
+TEA = "rtf::tea_init_kernel(long long const*, long long const*, long long*, int, int)"
+HTOD = "Memcpy HtoD (Pageable -> Device)"
+I64 = "void at::native::vectorized_elementwise_kernel<4, at::native::CUDAFunctor_add<long>>(int)"
+
+
+@pytest.mark.parametrize("prep", [
+    [PROBE],  # the probe-ray kernel, its seed passed by value
+    [IOTA, I64, HTOD, TEA, I64, INIT, INIT],  # torch ops around the TEA, the seed copied
+])
+def test_the_estimators_prep_counts_as_glue(prep):
+    """An estimate: the prep's events, then ``seg.init`` (the planes, the
+    host's read of the valid count), the presort and segment 0. The prep
+    lies before the valid-count read that bounds the presort's stretch, so
+    it counts as glue and none of it as reorder, whatever its launches."""
+    assert not any(tr._named(name) or tr._is_sort(name) for name in prep)
+    names = prep + [INIT, DTOH] + _reorder() + [K1]
+    t = tr.Trace(device=_events(names), window_us=10_000)
+    first = len(prep) + 2
+    assert tr.reorder_events(t) == set(range(first, names.index(K1)))
+    assert tr.glue_us(t) == pytest.approx(2 * first)
+    assert tr.reorder_us(t) == pytest.approx(2 * len(_reorder()))

@@ -7,10 +7,13 @@ results.
 The frame loop runs the bench scene at 16 x 16 on the segmented engine
 (its pool-size threshold lowered for the test); the estimator its probe
 rays on the same engine with the presort, as the port picks for a scene
-of 8 chunks or more.
+of 8 chunks or more. Marked ``card``: no host sync inside the estimator's
+prep on the card.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import numpy as np
 import pytest
@@ -20,7 +23,7 @@ from torch.profiler import ProfilerActivity, profile
 from raytracerfacility_tpu_torch import tracing
 from raytracerfacility_tpu_torch.models import illumination as il
 from raytracerfacility_tpu_torch.models import pathtracer as pt
-from raytracerfacility_tpu_torch.ops import seg
+from raytracerfacility_tpu_torch.ops import probe, seg
 from raytracerfacility_tpu_torch.scene import make_sphere
 from raytracerfacility_tpu_torch.scenes import bench_scene
 
@@ -99,8 +102,9 @@ def test_one_root_a_call_and_every_span_inside_its_parent(bench, monkeypatch, ro
 def test_a_sync_span_for_each_host_read(bench, monkeypatch, route):
     """Each pool reads the valid count, the live count after each reorder
     (a presort is one more) and copies its ray total to the device; the
-    estimator also copies its seed word and its primary tmin to the device
-    and reads its flux."""
+    estimator also copies its primary tmin to the device and reads its
+    flux. Its seed word reaches the device by value: only the plain probe
+    rays on the card copy it (``estimator.sync.seed``)."""
     fn, _ = CALLS[route]
     _, spans = _traced(fn, bench, monkeypatch)
     names = [s.name for s in spans]
@@ -113,13 +117,44 @@ def test_a_sync_span_for_each_host_read(bench, monkeypatch, route):
     want = (["seg.sync.live_count"] * reorders
             + ["seg.sync.ray_total", "seg.sync.valid_count"])
     if route == "estimator":
-        want += ["estimator.sync.flux", "estimator.sync.seed", "estimator.sync.tmin"]
+        want += ["estimator.sync.flux", "estimator.sync.tmin"]
     assert syncs == sorted(want)
     # every live-count read lies in its reorder
     by_index = {s.index: s for s in spans}
     for s in spans:
         if s.name == "seg.sync.live_count":
             assert by_index[s.parent].name == "seg.reorder"
+
+
+@contextlib.contextmanager
+def _syncs_raise():
+    """CUDA's sync debug mode set to raise on every host sync inside."""
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+@pytest.mark.card
+def test_no_sync_inside_the_estimators_prep_on_the_card(monkeypatch):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    card = torch.device("cuda", 0)
+    scene, _, env = bench_scene(W, H)
+    lift = np.eye(4, dtype=np.float32)
+    lift[:3, 3] = (0.3, 0.8, 0.0)
+    probes = il.probes_from_mesh(make_sphere(0.2, rings=4, sectors=6), lift, card)
+    compiled, env_s = scene.build(card), env.state(card)
+    span = tracing.span
+    monkeypatch.setattr(tracing, "span", lambda name: (
+        _syncs_raise() if name == "estimator.prep" else span(name)))
+    out, rays = il.estimate_illumination_counted(
+        compiled, env_s, pt.RenderConfig(bounces=BOUNCES), probes, seed=5)
+    assert bool(torch.isfinite(out.energy).all()) and int(rays) > 0
+    # the plain probe rays' seed copy is a sync the mode reports
+    with pytest.raises(RuntimeError), _syncs_raise():
+        probe._probe_rays_plain(probes, 1, 5, 0.001, 0)
 
 
 def test_the_frame_loop_names_its_stages(bench, monkeypatch):
