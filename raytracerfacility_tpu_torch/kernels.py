@@ -21,7 +21,10 @@ modes, ``miss_radiance_kernel<cubemap>`` the cubemap's alone).
 ``MISSED_RAYS`` holds, for each device, the running count of the rays the
 miss hook found missed (``ops/environment.py::missed_rays``): a tensor on
 that device, so the count costs the timed path no host read.
-``reset_launches`` clears both.
+``CURVE_HITS`` holds, for each device, the running count of the closest
+hits on curve rows that the wavefront engine shaded
+(``models/pathtracer.py::curve_hits``), kept the same way.
+``reset_launches`` clears all three.
 """
 
 from __future__ import annotations
@@ -59,6 +62,9 @@ LAUNCHES = {"seg_segment_kernel": 0, "seg_segment_kernel<miss>": 0,
 # device -> (2,) int64 tensor on it: the missed rays whose light the hook
 # did not and did write out (ops/environment.py::missed_rays)
 MISSED_RAYS: dict = {}
+# device -> () int64 tensor on it: closest hits on curve rows
+# (models/pathtracer.py::curve_hits)
+CURVE_HITS: dict = {}
 
 _libs: dict = {}
 
@@ -66,7 +72,7 @@ _libs: dict = {}
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
-    for tally in MISSED_RAYS.values():
+    for tally in (*MISSED_RAYS.values(), *CURVE_HITS.values()):
         tally.zero_()
 
 

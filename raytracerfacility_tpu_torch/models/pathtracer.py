@@ -49,7 +49,7 @@ import dataclasses
 
 import torch
 
-from raytracerfacility_tpu_torch import tracing
+from raytracerfacility_tpu_torch import kernels, tracing
 from raytracerfacility_tpu_torch.enums import (
     EnvironmentalLightingType,
     MaterialType,
@@ -66,6 +66,7 @@ from raytracerfacility_tpu_torch.ops.btf import btf_colors
 from raytracerfacility_tpu_torch.ops.camera import CameraState, generate_camera_rays
 from raytracerfacility_tpu_torch.ops.environment import (
     EnvironmentState,
+    _device_key,
     calculate_environmental_light,
     direction_dependent,
     flat_radiance,
@@ -292,6 +293,9 @@ def _segment(scene: CompiledScene, env: EnvironmentState, config: RenderConfig,
 
     # hit: interpolate and evaluate the material
     accepted = active & res.hit
+    if scene.geometry.has_curves:
+        _curve_hit_tally(st.device).add_(
+            torch.count_nonzero(accepted & (scene.geometry.kind[res.prim] == 1)))
     hit = interpolate_hit(scene, res.prim, res.u, res.v, direction, origin,
                           res.t, with_tangent=config.enable_btf,
                           with_vertex_attrs=False)
@@ -369,6 +373,25 @@ def _segment(scene: CompiledScene, env: EnvironmentState, config: RenderConfig,
     return PathState(st=new, rng=to_int32(rng))
 
 
+def _curve_hit_tally(device) -> torch.Tensor:
+    """The () int64 tensor of ``kernels.CURVE_HITS[device]`` that each
+    segment on a scene with curves adds its closest hits on curve rows
+    to; made on the device's first such segment."""
+    tally = kernels.CURVE_HITS.get(device)
+    if tally is None:
+        tally = kernels.CURVE_HITS[device] = torch.zeros((), dtype=torch.int64,
+                                                         device=device)
+    return tally
+
+
+def curve_hits(device) -> int:
+    """Closest hits on curve rows that the wavefront engine shaded on
+    ``device`` since the last ``kernels.reset_launches()``. Reads the
+    device: a host sync, for outside the timed path."""
+    tally = kernels.CURVE_HITS.get(_device_key(device))
+    return 0 if tally is None else int(tally)
+
+
 def _sorted_state_loop(scene, env, config, state: PathState):
     """The wavefront state stays sorted and dead-compacted across segments
     (ref pathtracer.py:618-772): before each segment the live rays are
@@ -389,10 +412,12 @@ def _sorted_state_loop(scene, env, config, state: PathState):
         if live == 0:
             break
         rays += live
-        res = _trace_state(scene, st, live,
-                           torch.full((live,), TMAX, device=st.device))
-        new = _segment(scene, env, config,
-                       PathState(st=st[:, :live], rng=rng[:live]), res)
+        with tracing.span("wavefront.trace"):
+            res = _trace_state(scene, st, live,
+                               torch.full((live,), TMAX, device=st.device))
+        with tracing.span("wavefront.shade"):
+            new = _segment(scene, env, config,
+                           PathState(st=st[:, :live], rng=rng[:live]), res)
         st[:, :live] = new.st
         rng[:live] = new.rng
     return sort_state_by_index(PathState(st=st, rng=rng), orig), rays

@@ -22,8 +22,10 @@ order they open: the port makes its calls from one thread.
 Names in use (``README.md``, Tracing): ``frame.call`` (root), ``frame.camera``,
 ``frame.finalize``; ``seg.pool``, ``fused.pool``, ``wavefront.pool`` (one
 engine pool each); ``seg.init``, ``seg.reorder``, ``seg.k1``, ``seg.miss``,
-``seg.unsort``; inside ``seg.miss`` (and the wavefront engine's miss
-hook) ``env.params``, ``env.compact``, ``env.radiance``;
+``seg.unsort``; ``wavefront.trace`` and ``wavefront.shade`` (a segment's
+trace and shade in the wavefront engine); inside ``seg.miss`` (and the
+wavefront engine's miss hook) ``env.params``, ``env.compact``,
+``env.radiance``;
 ``estimator.call`` (root), ``estimator.prep``,
 ``estimator.reduce``; and the host syncs ``seg.sync.valid_count``,
 ``seg.sync.live_count``, ``seg.sync.ray_total``,
